@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port of the walk engine on one NVIDIA GPU.
+"""Drive the PyTorch / CUDA port (walks and SGNS training) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,11 +8,22 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
 
 1. holds each kernel against its plain PyTorch version on the card, on
    inputs made from a numpy seed (slots and walks must be ``torch.equal``);
+   1b. ``sgns_fused`` against its plain version at seven shapes up to
+   B=65,536 (``atol=rtol=3e-4``, masked rows exactly 0, two launches on
+   one input ``torch.equal``);
 2. main path A — the per-step ``node2vec_step`` kernel on the FN-Cache
    layout: ``WalkEngine.build("wec:k=17,deg=100,seed=0", WalkPlan(
    backend="fused", cap=128, ...))``, two FN-Multi rounds in exact and in
    approx mode, every vertex a walker; walks must equal the reference
    backend's and the kernel must launch once per superstep;
+   path C — streamed SGNS on path A's layout: ``StreamingSGNSTrainer(
+   vocab=131_072, dim=128, window=10, negatives=5, batch_size=1024,
+   sgns_backend="fused")`` ``.train()``s over 2 FN-Multi rounds of 1,024
+   walkers (every 128th vertex) of fused-backend walks of length 80; the
+   kernel must launch once per optimizer step, the loss must be finite and
+   end below its peak (at this width dense Adam first drives it up, in
+   the JAX package as here), and a concat replay of round 0 into a fresh
+   trainer must equal the streamed run's tables after round 0 exactly;
 3. main path B — the whole-walk ``node2vec_walk`` kernel on the FN-Base
    layout (``er:k=18,deg=100,seed=0``, ``pipeline=True``, one round); walks
    must equal the reference backend's, one launch;
@@ -21,9 +32,13 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    bytes the draws need (live lanes only, not the PAD lanes that pad each
    row to the widest) over 3.35 TB/s, or float32 operations over
    67 TFLOP/s, whichever is larger;
-5. profiles one more round of each path with ``torch.profiler``: the
-   round's wall seconds, the share of it the device was busy, and the
-   kernels with the most device time.
+5. profiles one more round of each walk path and ~200 steps of path C
+   with ``torch.profiler``: the window's wall seconds, the share of it the
+   device was busy, and the kernels with the most device time;
+6. path D — the entry point ``train_streamed`` end to end on the card and
+   on the CPU (``sbm:n=400,c=4,pin=0.06,pout=0.004,seed=1`` with
+   bench_accuracy's weights, fused walks and fused SGNS): the two
+   micro-F1s must agree within 0.05.
 
 It prints the card's name and power limit, the build seconds, walker-steps
 per second for each phase, a ``{"kernels": [...]}`` line, and last
@@ -42,8 +57,17 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 CU_SOURCE = "src/repro_torch/kernels/csrc/node2vec_step.cu"
+SGNS_SOURCE = "src/repro_torch/kernels/csrc/sgns.cu"
 LENGTH = 80
 TOP = 8                         # kernels listed per profiled round
+SGNS_TOL = 3e-4                 # the JAX package's kernel tolerance
+SGNS_SHAPES = [(8, 1, 16), (64, 5, 32), (100, 8, 128), (512, 5, 200),
+               (3, 12, 300), (1024, 5, 128), (65536, 5, 128)]
+C_EVERY = 128                   # path C walks every 128th vertex
+C_ROUNDS = 2
+C_PROFILE_WALKERS = 137         # ~200 optimizer steps at length 80
+D_SPEC = "sbm:n=400,c=4,pin=0.06,pout=0.004,seed=1"
+D_F1_GAP = 0.05
 
 
 def log(msg: str) -> None:
@@ -94,8 +118,8 @@ def device_us(evt) -> float:
     return 0.0
 
 
-def profile_round(torch, engine, label: str) -> None:
-    """Profile one warm round of ``engine``: its wall seconds (host clock,
+def profile_round(torch, run, label: str, what: str = "round") -> None:
+    """Profile one warm call of ``run``: its wall seconds (host clock,
     ending in a synchronize), the share of that window the device was busy
     (the summed time of the device's own events), and the top kernels."""
     from torch.autograd import DeviceType
@@ -104,7 +128,7 @@ def profile_round(torch, engine, label: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.run(seed=1)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only: a CPU op's device time repeats its kernels'
@@ -112,7 +136,7 @@ def profile_round(torch, engine, label: str) -> None:
                      if e.device_type == DeviceType.CUDA and device_us(e) > 0),
                     key=device_us, reverse=True)
     busy = sum(map(device_us, events)) / 1e6
-    log(f"profile {label}: round {wall:.4f} s under the profiler, device "
+    log(f"profile {label}: {what} {wall:.4f} s under the profiler, device "
         f"busy {busy:.4f} s = {busy / wall:.3f} of the window"
         + ("" if events else " (the trace holds no device time)"))
     for e in events[:TOP]:
@@ -198,6 +222,201 @@ def check_kernels(np, torch, K, pad):
     return step_err, walk_err
 
 
+def sgns_rows(np, rng, b: int, k: int, d: int):
+    """Gathered SGNS rows and a row mask (~80% live)."""
+    return (rng.normal(size=(b, d)).astype(np.float32),
+            rng.normal(size=(b, d)).astype(np.float32),
+            rng.normal(size=(b, k, d)).astype(np.float32),
+            (rng.random(b) > 0.2).astype(np.float32))
+
+
+def sgns_compare(torch, S, args, label: str) -> float:
+    """One input through the kernel twice and the plain version once:
+    the two launches must be ``torch.equal``, the kernel within SGNS_TOL
+    of the plain version, masked rows' grads exactly 0. Returns the
+    largest |kernel - plain|."""
+    got = S.sgns_fused(*args)
+    again = S.sgns_fused(*args)
+    want = S.sgns_fused_plain(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    masked = args[3] == 0
+    for name, g, a, w in zip(("loss", "g_ci", "g_po", "g_no"), got, again,
+                             want):
+        if not torch.equal(g, a):
+            raise AssertionError(f"sgns_fused {label}: {name} differs "
+                                 f"between two launches")
+        err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
+        if not torch.allclose(g, w, atol=SGNS_TOL, rtol=SGNS_TOL):
+            raise AssertionError(f"sgns_fused {label}: {name} differs from "
+                                 f"the plain version by "
+                                 f"{float((g - w).abs().max())}")
+        if name != "loss" and not bool((g[masked] == 0).all()):
+            raise AssertionError(f"sgns_fused {label}: {name} is not 0 on "
+                                 f"masked rows")
+    return err
+
+
+def check_sgns(np, torch, S) -> float:
+    """Phase 1b: ``sgns_fused`` against its plain version on the card."""
+    rng = np.random.default_rng(1)
+    err = 0.0
+    for b, k, d in SGNS_SHAPES:
+        args = [torch.from_numpy(a).cuda() for a in sgns_rows(np, rng, b, k,
+                                                              d)]
+        err = max(err, sgns_compare(torch, S, args, f"B={b} K={k} D={d}"))
+    log(f"sgns_fused == plain (atol=rtol={SGNS_TOL}, max |err| {err:.3g}), "
+        f"deterministic, masked rows 0, on {len(SGNS_SHAPES)} shapes")
+    return err
+
+
+def sgns_bound(b: int, k: int, d: int):
+    """Least time for the kernel's work: ci, po, no and valid read once,
+    the three grads and the loss written once; ~5KD + 4D float32
+    operations a row (dots, scales and the g_ci sum)."""
+    nbytes = 8 * b * d * (2 + k) + 4 * b + 4
+    return bound_ms(nbytes, b * (5 * k * d + 4 * d))
+
+
+def f1_scores(np, emb, labels, seed=0):
+    """Micro/macro-F1 of a least-squares probe on a 50% split: a copy of
+    benchmarks/bench_accuracy.py's ``_f1``."""
+    rng = np.random.default_rng(seed)
+    n = emb.shape[0]
+    k = labels.max() + 1
+    idx = rng.permutation(n)
+    tr, te = idx[:n // 2], idx[n // 2:]
+    y = np.eye(k)[labels]
+    w, *_ = np.linalg.lstsq(emb[tr], y[tr], rcond=None)
+    pred = (emb[te] @ w).argmax(1)
+    gold = labels[te]
+    micro = (pred == gold).mean()
+    f1s = []
+    for c in range(k):
+        tp = ((pred == c) & (gold == c)).sum()
+        fp = ((pred == c) & (gold != c)).sum()
+        fn = ((pred != c) & (gold == c)).sum()
+        p = tp / max(tp + fp, 1)
+        r = tp / max(tp + fn, 1)
+        f1s.append(2 * p * r / max(p + r, 1e-9))
+    return float(micro), float(np.mean(f1s))
+
+
+def path_c(np, torch, pg, walkers_every: int = C_EVERY,
+           rounds: int = C_ROUNDS, length: int = LENGTH):
+    """Main path C: the streamed trainer with the fused SGNS kernel over
+    ``rounds`` FN-Multi rounds of fused walks on ``pg``. Returns (trainer,
+    the rounds' walks, sgns_fused launches of the run)."""
+    from repro_torch.core.skipgram import normalize_embeddings
+    from repro_torch.engine import WalkEngine, WalkPlan, round_seed
+    from repro_torch.kernels import node2vec_step as K
+    from repro_torch.kernels import sgns as S
+    from repro_torch.train.stream import StreamingSGNSTrainer
+
+    kw = dict(vocab=pg.n, dim=128, window=10, negatives=5, batch_size=1024,
+              lr=0.025, epochs=1, sgns_backend="fused", device=pg.device)
+    engine = WalkEngine.build(pg, WalkPlan(p=1.0, q=0.5, length=length,
+                                           cap=128, backend="fused"))
+    starts = np.arange(0, pg.n, walkers_every, dtype=np.int32)
+    trainer = StreamingSGNSTrainer(**kw)
+    kept, snap = [], {}
+
+    def source():
+        for r in range(rounds):
+            if r == 1:   # round 0 has been trained: keep its tables
+                snap["emb"] = normalize_embeddings(trainer.params).cpu()
+            walks = engine.run(starts=starts, seed=round_seed(0, r)).walks
+            kept.append(walks)
+            yield walks
+
+    S.sgns_fused.launches = 0
+    K.node2vec_step.launches = 0
+    K.node2vec_walk.launches = 0
+    _, st = trainer.train(source())
+    launches = S.sgns_fused.launches
+    if launches != st.steps or st.steps == 0:
+        raise AssertionError(f"C: sgns_fused launched {launches} times for "
+                             f"{st.steps} optimizer steps")
+    if K.node2vec_step.launches != rounds * (length - 1):
+        raise AssertionError(f"C: node2vec_step launched "
+                             f"{K.node2vec_step.launches} times")
+    losses = trainer.loss_history()
+    win = max(1, len(losses) // 20)
+    curve = [float(losses[i:i + win].mean())
+             for i in range(0, len(losses) - win + 1, win)]
+    head, tail = curve[0], curve[-1]
+    if not np.all(np.isfinite(losses)) or not tail < max(curve):
+        raise AssertionError(f"C: loss not finite or not below its peak "
+                             f"at the end: {curve}")
+    log(f"C: {len(starts)} walkers x {length} x {rounds} rounds, V={pg.n} "
+        f"D=128 K=5 B=1024: {st.steps} steps in {st.wall_seconds:.3f} s = "
+        f"{st.steps / st.wall_seconds:.4g} steps/s, "
+        f"{st.pairs_per_sec:.4g} pairs/s; loss {head:.4f} -> {tail:.4f}; "
+        f"sgns_fused launches {launches} == steps")
+    log(f"C: loss over 5% windows: "
+        f"{' '.join(f'{x:.4f}' for x in curve)}")
+    log(f"C: {st}")
+    t0 = time.perf_counter()
+    replay = StreamingSGNSTrainer(**kw)
+    replay.consume(kept[0])
+    emb0 = normalize_embeddings(replay.params).cpu()
+    if rounds > 1:
+        if not torch.equal(emb0, snap["emb"]):
+            raise AssertionError("C: concat replay of round 0 differs from "
+                                 "the streamed run")
+        log(f"C: concat replay of round 0 == streamed tables after round 0 "
+            f"({time.perf_counter() - t0:.2f} s)")
+    return trainer, kept, launches
+
+
+def time_sgns(np, torch, S, trainer, walks, b: int, label: str):
+    """Kernel and plain-version times at batch ``b`` on rows gathered from
+    the trained tables with pairs of ``walks``; returns (ms, plain_ms,
+    bound, max |kernel - plain|)."""
+    from repro_torch.train.pairs import device_pairs
+    w = torch.from_numpy(walks).cuda()
+    c, x, valid = device_pairs(w, 10)
+    pick = torch.from_numpy(np.random.default_rng(b).choice(
+        c.numel(), b, replace=b > c.numel())).cuda()
+    negs = torch.from_numpy(np.random.default_rng(b + 1).integers(
+        0, trainer.vocab, (b, 5))).cuda()
+    p = trainer.params
+    args = (p["emb_in"][c[pick].long()], p["emb_out"][x[pick].long()],
+            p["emb_out"][negs], valid[pick].float())
+    err = sgns_compare(torch, S, args, label)
+    reps = 200 if b <= 4096 else 50
+    ms = cuda_ms(torch, lambda: S.sgns_fused(*args), reps, warmup=5)
+    plain = cuda_ms(torch, lambda: S.sgns_fused_plain(*args), reps // 4,
+                    warmup=2)
+    bound = sgns_bound(b, 5, 128)
+    log(f"sgns_fused {label} (B={b} K=5 D=128): {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+        f"max |kernel - plain| {err:.3g}")
+    return ms, plain, bound, err
+
+
+def path_d(np, torch, device=None):
+    """Path D: ``train_streamed`` end to end; returns (micro, macro, stats,
+    sgns_fused launches)."""
+    from repro_torch.core.node2vec import Node2VecConfig
+    from repro_torch.data.store import open_graph
+    from repro_torch.kernels import sgns as S
+    from repro_torch.train.stream import train_streamed
+    ds = open_graph(D_SPEC)
+    g = ds.graph
+    g.wgt = (np.random.default_rng(0).random(g.m) * 4 + 0.5).astype(
+        np.float32)
+    cfg = Node2VecConfig(p=1.0, q=0.5, walk_length=20, num_walks=4, window=5,
+                         dim=32, epochs=2, batch_size=4096, seed=0,
+                         backend="fused", sgns_backend="fused")
+    before = S.sgns_fused.launches
+    emb, st = train_streamed(g, cfg, device=device)
+    if emb.shape != (g.n, 32) or not np.all(np.isfinite(emb)):
+        raise AssertionError(f"D: bad embeddings {emb.shape}")
+    micro, macro = f1_scores(np, emb, ds.labels)
+    return micro, macro, st, S.sgns_fused.launches - before
+
+
 def drive(torch, engine, rounds: int):
     """Run ``rounds`` FN-Multi rounds; returns (walks list, seconds)."""
     torch.cuda.synchronize()
@@ -224,6 +443,7 @@ def main() -> int:
     from repro_torch.engine import WalkEngine, WalkPlan
     from repro_torch.kernels import build
     from repro_torch.kernels import node2vec_step as K
+    from repro_torch.kernels import sgns as S
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -233,10 +453,11 @@ def main() -> int:
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    build.load("node2vec_step")
+    build.load_all(("node2vec_step", "sgns"))
     log(f"kernel build: {time.perf_counter() - t0:.2f} s host")
 
     step_err, walk_err = check_kernels(np, torch, K, PAD_ID)
+    sgns_err = check_sgns(np, torch, S)
 
     # ---- main path A: per-step kernel, FN-Cache ------------------------
     spec_a = "wec:k=17,deg=100,seed=0"
@@ -276,7 +497,7 @@ def main() -> int:
             f"({secs:.3f} s), reference {steps / ref_secs:.4g} "
             f"walker-steps/s; == reference; node2vec_step launches "
             f"{step_launches[mode]}")
-        profile_round(torch, fused, f"A/{mode} fused")
+        profile_round(torch, lambda: fused.run(seed=1), f"A/{mode} fused")
 
     # superstep s of path A's round 0 (seed 0), for timing the step kernel:
     # walks[:, k] is the vertex after step k, so u = walks[:, s - 2] and
@@ -316,6 +537,18 @@ def main() -> int:
         f"({step_bound[1]}; {padded_ms:.4f} ms over the padded rows)")
     del first, fused, ref, walks, ref_walks, cand, cw, prev
 
+    # ---- main path C: streamed SGNS with the fused kernel --------------
+    trainer, c_walks, sgns_launches = path_c(np, torch, pg_a)
+    sgns_ms, sgns_plain_ms, sgns_bnd, err = time_sgns(
+        np, torch, S, trainer, c_walks[0], 1024, "main path")
+    sgns_err = max(sgns_err, err)
+    err = time_sgns(np, torch, S, trainer, c_walks[0], 65536,
+                    "bandwidth reading")[3]
+    sgns_err = max(sgns_err, err)
+    profile_round(torch, lambda: trainer.consume(
+        c_walks[0][:C_PROFILE_WALKERS]), "C fused SGNS", "~200 steps")
+    del trainer, c_walks, pg_a
+
     # ---- main path B: whole-walk kernel, FN-Base -----------------------
     spec_b = "er:k=18,deg=100,seed=0"
     kw = dict(p=1.0, q=0.5, length=LENGTH, pipeline=True)
@@ -346,7 +579,7 @@ def main() -> int:
     log(f"B: fused {steps / secs:.4g} walker-steps/s ({secs:.3f} s), "
         f"reference {steps / ref_secs:.4g} walker-steps/s; == reference; "
         f"node2vec_walk launches {walk_launches}")
-    profile_round(torch, fused, "B fused+pipeline")
+    profile_round(torch, lambda: fused.run(seed=1), "B fused+pipeline")
 
     starts = torch.arange(pg_b.n, dtype=torch.int32, device="cuda")
     v1 = torch.from_numpy(walks[0][:, 0].copy()).cuda()
@@ -380,6 +613,21 @@ def main() -> int:
         f"{walk_plain_ms:.4f} ms, bound {walk_bound[0]:.4f} ms "
         f"({walk_bound[1]}; {padded_ms:.4f} ms over the padded rows)")
 
+    # ---- path D: train_streamed end to end, card vs CPU ----------------
+    t0 = time.perf_counter()
+    micro, macro, st_d, d_launches = path_d(np, torch)
+    secs = time.perf_counter() - t0
+    if d_launches != st_d.steps:
+        raise AssertionError(f"D: sgns_fused launched {d_launches} times "
+                             f"for {st_d.steps} steps")
+    micro_cpu, macro_cpu, _, _ = path_d(np, torch, device="cpu")
+    log(f"D: {D_SPEC} train_streamed on the card in {secs:.2f} s "
+        f"({st_d.steps} steps, sgns_fused launches {d_launches}): "
+        f"micro-F1 {micro:.4f} macro-F1 {macro:.4f}; on the CPU micro-F1 "
+        f"{micro_cpu:.4f} macro-F1 {macro_cpu:.4f}")
+    if abs(micro - micro_cpu) > D_F1_GAP:
+        raise AssertionError(f"D: micro-F1 card {micro} vs CPU {micro_cpu}")
+
     kernels = [
         {"name": "node2vec_step", "route": "cuda", "source": CU_SOURCE,
          "replaces": "src/repro/kernels/node2vec_step.py:92",
@@ -391,6 +639,11 @@ def main() -> int:
          "launches": walk_launches, "max_abs_err": walk_err,
          "ms": walk_ms, "plain_ms": walk_plain_ms, "bound_ms": walk_bound[0],
          "bound_by": walk_bound[1], "library_ms": None},
+        {"name": "sgns_fused", "route": "cuda", "source": SGNS_SOURCE,
+         "replaces": "src/repro/kernels/sgns.py:76",
+         "launches": sgns_launches, "max_abs_err": sgns_err,
+         "ms": sgns_ms, "plain_ms": sgns_plain_ms, "bound_ms": sgns_bnd[0],
+         "bound_by": sgns_bnd[1], "library_ms": None},
     ]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,10 @@
 """Carry state from the JAX package into the port.
 
 This system's counterpart of carrying weights across: a device layout built
-by ``repro.core.graph.PaddedGraph.build`` and a ``jax.random`` key, each
-handed over as numpy arrays (``np.asarray`` of every field), become the
-port's :class:`PaddedGraph` and key. Nothing here imports JAX.
+by ``repro.core.graph.PaddedGraph.build``, a ``jax.random`` key, SGNS
+parameters and Adam state, each handed over as numpy arrays (``np.asarray``
+of every field), become the port's :class:`PaddedGraph`, key, params dict
+and :class:`AdamState`. Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from repro_torch.core.graph import FIELDS, PaddedGraph
 from repro_torch.device import resolve_device
+from repro_torch.optim.optimizers import AdamState
 
 
 def padded_graph_from_numpy(fields: dict, n: int, cap: int, hot_cap: int,
@@ -37,3 +39,29 @@ def key_from_numpy(key) -> torch.Tensor:
         raise ValueError(f"expected a uint32[2] key, got {key.dtype}"
                          f"{list(key.shape)}")
     return torch.from_numpy(key.astype(np.int64))
+
+
+def _tables(tree: dict, dev: torch.device) -> dict:
+    return {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+            for k, v in tree.items()}
+
+
+def sgns_params_from_numpy(params: dict, device=None) -> dict:
+    """A JAX SGNS params dict (``emb_in``, ``emb_out``) as numpy arrays ->
+    the port's params (float32 tensors on ``device``)."""
+    missing = {"emb_in", "emb_out"} - set(params)
+    if missing:
+        raise ValueError(f"params are missing {sorted(missing)}")
+    return _tables(params, resolve_device(device))
+
+
+def adam_state_from_numpy(state, device=None) -> AdamState:
+    """A JAX ``AdamState`` (``count``, ``mu``, ``nu``; a NamedTuple or a
+    dict of numpy arrays) -> the port's :class:`AdamState`."""
+    if not isinstance(state, dict):
+        state = state._asdict()
+    dev = resolve_device(device)
+    count = torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32,
+                         device=dev)
+    return AdamState(count, _tables(state["mu"], dev),
+                     _tables(state["nu"], dev))

@@ -15,12 +15,19 @@ split into (hi, lo) words:
     uniform(key)       = f32((o0 ^ o1) >> 9 | 0x3F800000) - 1.0,
                          with (o0, o1) = threefry(key, (0, 0))
 
+Shaped draws (the SGNS stage's ``randint``, ``uniform`` and
+``permutation``) hash a 64-bit iota counter, split into (hi, lo) words, and
+keep ``o0 ^ o1`` of each: :func:`random_bits`.
+
 A key is an int64 tensor whose last axis holds the two uint32 words; every
 function is vectorised over the leading axes. uint32 arithmetic is emulated
 in int64 and masked with ``& 0xFFFFFFFF``.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
@@ -65,8 +72,14 @@ def _counter(key: torch.Tensor, hi, lo) -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``, batched: key [..., 2], data int [...] (or a
-    Python int). ``data`` is taken mod 2**32 as JAX's uint32 cast does."""
-    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK
+    Python int). ``data`` is taken mod 2**32 as JAX's uint32 cast does. A
+    Python int is filled in on the key's device (no host-to-device copy)."""
+    if isinstance(data, int):
+        data = torch.full((), data & MASK, dtype=torch.int64,
+                          device=key.device)
+    else:
+        data = torch.as_tensor(data, dtype=torch.int64,
+                               device=key.device) & MASK
     return _counter(key, torch.zeros_like(data), data)
 
 
@@ -76,11 +89,66 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return _counter(key.unsqueeze(-2), torch.zeros_like(idx), idx)
 
 
-def uniform(key: torch.Tensor) -> torch.Tensor:
-    """``jax.random.uniform(key)`` (scalar float32 draw), batched over
-    key [..., 2] -> [...] float32: 23 random mantissa bits under exponent
-    0, minus 1.0."""
+def _to_float(bits: torch.Tensor) -> torch.Tensor:
+    """32 random bits -> float32 in [0, 1): 23 mantissa bits under
+    exponent 0, minus 1.0."""
+    fbits = (bits >> 9) | 0x3F800000
+    return fbits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(key: torch.Tensor, shape=None) -> torch.Tensor:
+    """``jax.random.uniform``.
+
+    ``shape=None``: one scalar draw per key, batched over key [..., 2] ->
+    [...] float32. Otherwise ``key`` is one [2] key and the result has
+    ``shape`` (``jax.random.uniform(key, shape)``)."""
+    if shape is not None:
+        return _to_float(random_bits(key, shape))
     zero = torch.zeros((), dtype=torch.int64, device=key.device)
     out = _counter(key, zero, zero)
-    fbits = (((out[..., 0] ^ out[..., 1]) >> 9) | 0x3F800000)
-    return fbits.to(torch.int32).view(torch.float32) - 1.0
+    return _to_float(out[..., 0] ^ out[..., 1])
+
+
+def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` for one [2] key: element
+    ``i`` of the flattened shape is ``o0 ^ o1`` of ``threefry(key, (i >>
+    32, i & MASK))``. Returns int64 holding uint32 values."""
+    shape = tuple(int(d) for d in shape)
+    count = torch.arange(math.prod(shape), dtype=torch.int64,
+                         device=key.device)
+    o0, o1 = threefry2x32(key[0], key[1], count >> 32, count & MASK)
+    return (o0 ^ o1).reshape(shape)
+
+
+def randint(key: torch.Tensor, shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32), step by
+    step as ``jax._src.random._randint``: two 32-bit draws folded into
+    ``[0, span)`` as ``((hi % span) * multiplier + lo % span) % span`` with
+    ``multiplier = (2**16 % span)**2 % span``. Every product and sum wraps
+    at 2**32 as JAX's uint32 arithmetic does (for span > 2**16 the
+    multiplier's square wraps to 0)."""
+    minval, maxval = int(minval), int(maxval)
+    k1, k2 = split(key)
+    hi = random_bits(k1, shape)
+    lo = random_bits(k2, shape)
+    span = (maxval - minval) & MASK if maxval > minval else 1
+    multiplier = (2 ** 16) % span
+    multiplier = ((multiplier * multiplier) & MASK) % span
+    offset = (((hi % span) * multiplier) & MASK) + lo % span
+    offset = (offset & MASK) % span
+    return (minval + offset).to(torch.int32)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (int64): JAX's ``_shuffle``, i.e.
+    ``ceil(3 ln n / ln(2**32 - 1))`` rounds, each a stable sort of the
+    current order by 32 fresh random bits under ``split(key)[1]``."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(MASK)))
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x

@@ -18,7 +18,7 @@ def _fake_nvcc(tmp_path, body: str) -> str:
 
 
 @pytest.fixture
-def sandbox(tmp_path, monkeypatch):
+def kernel_dir(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     (csrc / "k.cu").write_text("// v1\n")
@@ -28,9 +28,9 @@ def sandbox(tmp_path, monkeypatch):
     return tmp_path
 
 
-def test_load_compiles_once_per_source(sandbox, monkeypatch):
-    calls = sandbox / "calls"
-    nvcc = _fake_nvcc(sandbox, f'echo x >> "{calls}"\n'
+def test_load_compiles_once_per_source(kernel_dir, monkeypatch):
+    calls = kernel_dir / "calls"
+    nvcc = _fake_nvcc(kernel_dir, f'echo x >> "{calls}"\n'
                       'while [ "$1" != "-o" ]; do shift; done\n'
                       f'cp "{torch._C.__file__}" "$2"\n')
     monkeypatch.setattr(build, "_nvcc", lambda: nvcc)
@@ -38,21 +38,38 @@ def test_load_compiles_once_per_source(sandbox, monkeypatch):
     build.load("k")                      # loaded once per process
     monkeypatch.setattr(build, "_LOADED", {})
     build.load("k")                      # built library found on disk
-    built = sorted(p.name for p in (sandbox / "out").iterdir())
+    built = sorted(p.name for p in (kernel_dir / "out").iterdir())
     assert len(built) == 1 and built[0].startswith("libk-")
     assert calls.read_text().split() == ["x"]
 
-    (sandbox / "csrc" / "k.cu").write_text("// v2\n")
+    (kernel_dir / "csrc" / "k.cu").write_text("// v2\n")
     monkeypatch.setattr(build, "_LOADED", {})
     build.load("k")                      # an edited source is rebuilt
     assert calls.read_text().split() == ["x", "x"]
-    assert len(list((sandbox / "out").iterdir())) == 2
+    assert len(list((kernel_dir / "out").iterdir())) == 2
 
 
-def test_failed_compile_raises_and_leaves_nothing(sandbox, monkeypatch):
-    nvcc = _fake_nvcc(sandbox, 'echo "k.cu(3): error: bad"\nexit 1\n')
+def test_failed_compile_raises_and_leaves_nothing(kernel_dir, monkeypatch):
+    nvcc = _fake_nvcc(kernel_dir, 'echo "k.cu(3): error: bad"\nexit 1\n')
     monkeypatch.setattr(build, "_nvcc", lambda: nvcc)
     with pytest.raises(RuntimeError, match="error: bad"):
         build.load("k")
-    assert not any((sandbox / "out").iterdir())
+    assert not any((kernel_dir / "out").iterdir())
     assert "k" not in build._LOADED
+
+
+def test_load_all_starts_every_build_together(kernel_dir, monkeypatch):
+    """Each source gets its own nvcc, all running at once: each stand-in
+    compiler waits until the other has started."""
+    (kernel_dir / "csrc" / "j.cu").write_text("// j\n")
+    nvcc = _fake_nvcc(kernel_dir, f'touch "{kernel_dir}/started.$$"\n'
+                      f'while [ $(ls "{kernel_dir}" | grep -c started) -lt 2 ];'
+                      ' do sleep 0.05; done\n'
+                      'while [ "$1" != "-o" ]; do shift; done\n'
+                      f'cp "{torch._C.__file__}" "$2"\n')
+    monkeypatch.setattr(build, "_nvcc", lambda: nvcc)
+    libs = build.load_all(["k", "j"])
+    assert len(libs) == 2 and set(build._LOADED) == {"k", "j"}
+    built = sorted(p.name.split("-")[0] for p in (kernel_dir / "out").iterdir())
+    assert built == ["libj", "libk"]
+    assert build.load("j") is libs[1]

@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version, and the fused backend on the card against the CPU.
+version, and the fused walk backend and the fused streamed SGNS trainer on
+the card against the CPU.
 
 They skip where no card is present. On a machine with a card (which has
 no JAX, so this file imports none and the repository's conftest, which
@@ -14,7 +15,10 @@ import torch
 
 from repro_torch.core.graph import PAD_ID
 from repro_torch.engine import WalkEngine, WalkPlan
+from repro_torch.core.node2vec import Node2VecConfig
 from repro_torch.kernels import node2vec_step as K
+from repro_torch.kernels.sgns import sgns_fused, sgns_fused_plain
+from repro_torch.train.stream import train_streamed
 
 pytestmark = pytest.mark.cuda
 
@@ -92,3 +96,38 @@ def test_fused_walks_on_card_match_cpu(cuda, mode, cap, pipeline):
     before = K.node2vec_step.launches + K.node2vec_walk.launches
     assert np.array_equal(eng.run(seed=11).walks, cpu)
     assert K.node2vec_step.launches + K.node2vec_walk.launches > before
+
+
+@pytest.mark.parametrize("b,k,d", [(8, 1, 16), (1024, 5, 128),
+                                   (3, 12, 300)])
+def test_sgns_kernel_matches_plain(cuda, b, k, d):
+    rng = np.random.default_rng(b + k + d)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        rng.normal(size=(b, d)).astype(np.float32),
+        rng.normal(size=(b, d)).astype(np.float32),
+        rng.normal(size=(b, k, d)).astype(np.float32),
+        (rng.random(b) > 0.2).astype(np.float32))]
+    before = sgns_fused.launches
+    got = sgns_fused(*args)
+    again = sgns_fused(*args)
+    assert sgns_fused.launches == before + 2
+    masked = args[3] == 0
+    for g, a, w in zip(got, again, sgns_fused_plain(*args)):
+        assert torch.equal(g, a)            # deterministic, loss included
+        torch.testing.assert_close(g, w, atol=3e-4, rtol=3e-4)
+    for g in got[1:]:
+        assert bool((g[masked] == 0).all())
+
+
+def test_fused_streamed_trainer_on_card_matches_cpu(cuda):
+    cfg = Node2VecConfig(p=0.5, q=2.0, walk_length=10, num_walks=2, window=4,
+                         dim=16, negatives=3, batch_size=256, seed=0,
+                         backend="fused", sgns_backend="fused")
+    spec = "wec:k=7,deg=10,seed=1"
+    cpu, cpu_st = train_streamed(spec, cfg, device="cpu")
+    before = sgns_fused.launches
+    card, st = train_streamed(spec, cfg)
+    assert sgns_fused.launches - before == st.steps == cpu_st.steps
+    np.testing.assert_allclose(card, cpu, rtol=2e-4, atol=2e-4)
+    again, _ = train_streamed(spec, cfg)
+    assert np.array_equal(card, again)      # deterministic on the card

@@ -9,8 +9,10 @@ import pytest
 import torch
 
 from repro_torch.core.graph import CSRGraph, PaddedGraph
+from repro_torch.core.node2vec import Node2VecConfig
 from repro_torch.device import resolve_device
 from repro_torch.engine import WalkEngine, WalkPlan
+from repro_torch.train.stream import StreamingSGNSTrainer, train_streamed
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -50,3 +52,15 @@ def test_entry_points_need_a_card_or_the_cpu(monkeypatch):
     assert pg.device == torch.device("cpu")
     walks = WalkEngine.build(pg, WalkPlan(length=3)).run(seed=0).walks
     assert walks.shape == (4, 3)
+
+
+def test_trainer_entry_points_need_a_card_or_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Node2VecConfig(walk_length=4, num_walks=1, window=2, dim=4,
+                         negatives=1, batch_size=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingSGNSTrainer(16, dim=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_streamed("wec:k=4,deg=4", cfg)
+    emb, st = train_streamed("wec:k=4,deg=4", cfg, device="cpu")
+    assert emb.shape == (16, 4) and st.steps > 0

@@ -72,3 +72,46 @@ def test_key_from_numpy():
     assert jr.uniform(tk).numpy() == np.asarray(jax.random.uniform(jk))
     with pytest.raises(ValueError):
         key_from_numpy(np.zeros(3, np.uint32))
+
+
+@pytest.mark.parametrize("seed", [0, 11, 2 ** 31 + 5])
+@pytest.mark.parametrize("shape", [(), (1,), (7,), (3, 5), (64, 33)])
+def test_random_bits_and_shaped_uniform(seed, shape):
+    jk, tk = jax.random.PRNGKey(seed), jr.PRNGKey(seed)
+    bits = jr.random_bits(tk, shape)
+    assert bits.shape == shape
+    assert np.array_equal(bits.numpy(), np.asarray(
+        jax.random.bits(jk, shape, jnp.uint32)).astype(np.int64))
+    u = jr.uniform(tk, shape)
+    assert u.dtype == torch.float32
+    assert np.array_equal(u.numpy(), np.asarray(jax.random.uniform(jk, shape)))
+
+
+@pytest.mark.parametrize("span", [1, 60, 400, 65_536, 65_537, 131_071,
+                                  2 ** 17])
+@pytest.mark.parametrize("seed", [0, 7])
+def test_randint(span, seed):
+    """Spans that are not powers of two are where the uint32 wraparound
+    of the multiplier and the products matters."""
+    jk = jax.random.fold_in(jax.random.PRNGKey(seed), 5)
+    tk = jr.fold_in(jr.PRNGKey(seed), 5)
+    for lo, shape in ((0, (256, 5)), (3, (9,)), (-40, (2, 3, 4))):
+        want = np.asarray(jax.random.randint(jk, shape, lo, lo + span))
+        got = jr.randint(tk, shape, lo, lo + span)
+        assert got.dtype == torch.int32 and got.shape == shape
+        assert np.array_equal(got.numpy(), want)
+    # maxval <= minval gives minval, as in JAX
+    assert np.array_equal(jr.randint(tk, (4,), 5, 5).numpy(),
+                          np.asarray(jax.random.randint(jk, (4,), 5, 5)))
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 1000, 70_000])
+def test_permutation(n):
+    """70,000 elements take 2 stable sort rounds (ceil(3 ln n / ln(2^32
+    - 1))); fewer than ~1,600 take 1, and 0 or 1 element take none."""
+    for seed in (0, 3):
+        jk = jax.random.PRNGKey(seed)
+        got = jr.permutation(jr.PRNGKey(seed), n)
+        assert np.array_equal(got.numpy(),
+                              np.asarray(jax.random.permutation(jk, n)))
+    assert np.array_equal(np.sort(got.numpy()), np.arange(n))
