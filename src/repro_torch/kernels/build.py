@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -33,51 +34,35 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(source.read_bytes() + " ".join(
-        NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
-
-
-def load_all(names) -> list:
-    """The loaded libraries of ``csrc/<name>.cu`` for each name. Sources
-    with no library yet are compiled first, one ``nvcc`` each, all started
-    together."""
-    names = list(names)
-    jobs = []
-    for name in names:
-        if name in _LOADED:
-            continue
-        target = _target(name)
-        if target.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = target.with_suffix(f".tmp{os.getpid()}.so")
-        jobs.append((name, target, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for name, target, tmp, proc in jobs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed on {name}.cu:\n{out}")
-        else:
-            os.replace(tmp, target)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    for name in names:
-        if name not in _LOADED:
-            _LOADED[name] = ctypes.CDLL(str(_target(name)))
-    return [_LOADED[name] for name in names]
-
-
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, compiled first if no
     library of this source exists yet."""
     lib = _LOADED.get(name)
-    return lib if lib is not None else load_all([name])[0]
+    if lib is None:
+        source = CSRC / f"{name}.cu"
+        digest = hashlib.sha1(source.read_bytes() + " ".join(
+            NVCC_FLAGS).encode()).hexdigest()[:12]
+        target = BUILD_DIR / f"lib{name}-{digest}.so"
+        if not target.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(f".tmp{os.getpid()}.so")
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name}.cu:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, target)
+        lib = _LOADED[name] = ctypes.CDLL(str(target))
+    return lib
+
+
+def load_all(names) -> list:
+    """:func:`load` of every name, each in its own thread, so that their
+    ``nvcc`` runs all start together."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(load, names))
 
 
 def check(code: int, what: str) -> None:

@@ -19,49 +19,31 @@
 // B = 1024, K = 5, D = 128: about 2.2 us at 3.35 TB/s), against ~5 K D flops
 // a row. At that batch one launch is latency-bound, not bandwidth-bound.
 //
-// Design. One warp per row, several rows per block, so every block has
+// Design. One warp per row, eight rows per block, so every block has
 // enough independent loads in flight; each lane strides over D, so a warp's
-// loads are coalesced. The first pass reads ci, po and each no_k once,
-// reduces the 1 + K dot products with a fixed __shfl_xor_sync tree (the
-// same order every run) and stages the row in the warp's shared memory; the
-// second pass writes the three grads from the staged copy. Each lane reads
-// back only what it staged itself. Where a row does not fit the shared
-// memory budget, the second pass reads the inputs again from global memory
-// instead (the same lane, the same addresses, mostly cache hits). The Pallas
-// kernel carried the loss across its sequential grid; here blocks run in no
-// order, so each block writes a partial sum and a second one-block pass sums
-// the partials in a fixed order: the loss is bit-stable from run to run,
-// with no atomics. Built with --fmad=false, so nothing contracts to FMA.
+// loads are coalesced. A lane reads ci, po and each no_k for the 1 + K dot
+// products, which reduce with a fixed __shfl_xor_sync tree (the same order
+// every run). The grads are written in a second pass over the same
+// addresses by the same lane, which reads the row again: those reads are
+// meant to hit the cache the first pass filled, so that device memory sees
+// each input once (chip_smoke.py's B = 65,536 time beside its bound says
+// how near that comes). The negatives' coefficients sigmoid(x_k) * valid sit in a 32-float
+// slot of shared memory per warp, so negatives are taken in chunks of 32:
+// one chunk (one pass pair) for K <= 32; past that, each chunk adds to g_ci
+// where the one before left it, in the same order. Nothing depends on D or
+// K beyond that, so any shape takes the one path. The Pallas kernel carried
+// the loss across its sequential grid; here blocks run in no order, so each
+// block writes a partial sum and a second one-block pass sums the partials
+// in a fixed order: the loss is bit-stable from run to run, with no atomics.
+// Built with --fmad=false, so nothing contracts to FMA.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kMaxWarps = 8;              // rows per block, at most
-constexpr int kSmemBudget = 48 * 1024;    // without the opt-in attribute
-constexpr int kStageLimit = 24 * 1024;    // largest staged row, bytes
-constexpr int kSmemOptIn = 227 * 1024;    // Hopper's opt-in maximum
+constexpr int kWarps = 8;                 // rows per block
 constexpr int kSumThreads = 256;
-
-struct Plan {
-  int warps;     // rows per block
-  int staged;    // 1: the second pass reads the shared-memory copy
-  int smem;      // dynamic shared memory bytes per block
-};
-
-// Shared memory per warp: K coefficients, then (staged) ci, po, no_0..K-1.
-Plan plan_for(int k, int d) {
-  Plan p;
-  const long long staged_bytes = 4LL * (k + (2LL + k) * d);
-  const long long coef_bytes = 4LL * k;
-  p.staged = staged_bytes <= kStageLimit;
-  const long long per_warp = p.staged ? staged_bytes : coef_bytes;
-  long long warps = kSmemBudget / per_warp;
-  p.warps = (int)(warps < 1 ? 1 : (warps > kMaxWarps ? kMaxWarps : warps));
-  p.smem = (int)(per_warp * p.warps);
-  return p;
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = kWarp / 2; o > 0; o >>= 1)
@@ -85,69 +67,59 @@ __global__ void sgns_fused_kernel(const float* __restrict__ ci,
                                   float* __restrict__ g_ci,
                                   float* __restrict__ g_po,
                                   float* __restrict__ g_no,
-                                  int b_rows, int k, int d, int staged) {
-  extern __shared__ float smem[];
-  __shared__ float warp_loss[kMaxWarps];
+                                  int b_rows, int k, int d) {
+  __shared__ float coef_s[kWarps][kWarp];   // sigmoid(x_k) * valid, a chunk
+  __shared__ float warp_loss[kWarps];
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
-  const int warps = blockDim.x / kWarp;
-  const long long per_warp = k + (staged ? (2LL + k) * d : 0LL);
-  float* coef = smem + warp * per_warp;     // sigmoid(x_k) * valid
-  float* rows = coef + k;                   // staged ci | po | no
-  const long long b = (long long)blockIdx.x * warps + warp;
+  float* coef = coef_s[warp];
+  const long long b = (long long)blockIdx.x * kWarps + warp;
   float loss = 0.0f;
   if (b < b_rows) {
     const float* ci_b = ci + b * d;
     const float* po_b = po + b * d;
     const float* no_b = no + b * (long long)k * d;
-    const float v = valid[b];
-
-    // pass 1: the 1 + K dot products, staging the row on the way
-    float acc = 0.0f;
-    for (int j = lane; j < d; j += kWarp) {
-      const float c = ci_b[j];
-      const float p = po_b[j];
-      if (staged) {
-        rows[j] = c;
-        rows[d + j] = p;
-      }
-      acc += c * p;
-    }
-    const float x_p = warp_sum(acc);
-    loss = softplus(-x_p);
-    const float coef_p = (sigmoid(x_p) - 1.0f) * v;
-    for (int n = 0; n < k; ++n) {
-      const float* no_n = no_b + (long long)n * d;
-      acc = 0.0f;
-      for (int j = lane; j < d; j += kWarp) {
-        const float c = staged ? rows[j] : ci_b[j];
-        const float x = no_n[j];
-        if (staged) rows[(2LL + n) * d + j] = x;
-        acc += c * x;
-      }
-      const float x_n = warp_sum(acc);
-      loss += softplus(x_n);
-      if (lane == 0) coef[n] = sigmoid(x_n) * v;
-    }
-    __syncwarp();
-
-    // pass 2: the three grads, each written once
-    const float* s_ci = staged ? rows : ci_b;
-    const float* s_po = staged ? rows + d : po_b;
-    const float* s_no = staged ? rows + 2LL * d : no_b;
     float* gci_b = g_ci + b * d;
     float* gpo_b = g_po + b * d;
     float* gno_b = g_no + b * (long long)k * d;
-    for (int j = lane; j < d; j += kWarp) {
-      const float c = s_ci[j];
-      float g = coef_p * s_po[j];
-      gpo_b[j] = coef_p * c;
-      for (int n = 0; n < k; ++n) {
-        const float w = coef[n];
-        g += w * s_no[(long long)n * d + j];
-        gno_b[(long long)n * d + j] = w * c;
+    const float v = valid[b];
+
+    float acc = 0.0f;
+    for (int j = lane; j < d; j += kWarp) acc += ci_b[j] * po_b[j];
+    const float x_p = warp_sum(acc);
+    loss = softplus(-x_p);
+    const float coef_p = (sigmoid(x_p) - 1.0f) * v;
+    for (int n0 = 0; n0 < k; n0 += kWarp) {
+      const int kc = min(kWarp, k - n0);
+      // pass 1: this chunk's dot products
+      for (int n = 0; n < kc; ++n) {
+        const float* no_n = no_b + (long long)(n0 + n) * d;
+        acc = 0.0f;
+        for (int j = lane; j < d; j += kWarp) acc += ci_b[j] * no_n[j];
+        const float x_n = warp_sum(acc);
+        loss += softplus(x_n);
+        if (lane == 0) coef[n] = sigmoid(x_n) * v;
       }
-      gci_b[j] = g;
+      __syncwarp();
+      // pass 2: the grads of this chunk, each written once
+      for (int j = lane; j < d; j += kWarp) {
+        const float c = ci_b[j];
+        float g;
+        if (n0 == 0) {
+          g = coef_p * po_b[j];
+          gpo_b[j] = coef_p * c;
+        } else {
+          g = gci_b[j];
+        }
+        for (int n = 0; n < kc; ++n) {
+          const long long at = (long long)(n0 + n) * d + j;
+          const float w = coef[n];
+          g += w * no_b[at];
+          gno_b[at] = w * c;
+        }
+        gci_b[j] = g;
+      }
+      __syncwarp();
     }
     loss *= v;
   }
@@ -155,7 +127,7 @@ __global__ void sgns_fused_kernel(const float* __restrict__ ci,
   __syncthreads();
   if (threadIdx.x == 0) {
     float s = 0.0f;
-    for (int w = 0; w < warps; ++w) s += warp_loss[w];
+    for (int w = 0; w < kWarps; ++w) s += warp_loss[w];
     partial[blockIdx.x] = s;
   }
 }
@@ -179,33 +151,21 @@ __global__ void sgns_loss_sum_kernel(const float* __restrict__ partial,
 
 extern "C" {
 
-// Number of per-block partial sums a launch over B rows writes (the size of
-// the scratch the caller allocates), or -1 if K does not fit on chip.
-int sgns_fused_blocks(int b_rows, int k, int d) {
-  const Plan p = plan_for(k, d);
-  if (p.smem > kSmemOptIn) return -1;
-  return (b_rows + p.warps - 1) / p.warps;
-}
+// Number of per-block partial sums a launch over B rows writes: the size of
+// the scratch the caller allocates.
+int sgns_fused_blocks(int b_rows) { return (b_rows + kWarps - 1) / kWarps; }
 
 // loss [1] receives the masked loss sum; partial holds
-// sgns_fused_blocks(B, K, D) floats of scratch. Returns cudaGetLastError().
+// sgns_fused_blocks(B) floats of scratch. Returns cudaGetLastError().
 int sgns_fused_launch(const float* ci, const float* po, const float* no,
                       const float* valid, float* partial, float* loss,
                       float* g_ci, float* g_po, float* g_no, int b_rows,
                       int k, int d, void* stream) {
-  const Plan p = plan_for(k, d);
-  const int blocks = (b_rows + p.warps - 1) / p.warps;
+  const int blocks = sgns_fused_blocks(b_rows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.smem > kSmemBudget) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sgns_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        p.smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   if (blocks > 0) {
-    sgns_fused_kernel<<<blocks, p.warps * kWarp, p.smem, s>>>(
-        ci, po, no, valid, partial, g_ci, g_po, g_no, b_rows, k, d,
-        p.staged);
+    sgns_fused_kernel<<<blocks, kWarps * kWarp, 0, s>>>(
+        ci, po, no, valid, partial, g_ci, g_po, g_no, b_rows, k, d);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

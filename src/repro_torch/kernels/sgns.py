@@ -25,7 +25,7 @@ def _lib():
     from repro_torch.kernels import build
     lib = build.load("sgns")
     if not getattr(lib, "_typed", False):
-        lib.sgns_fused_blocks.argtypes = [_I, _I, _I]
+        lib.sgns_fused_blocks.argtypes = [_I]
         lib.sgns_fused_blocks.restype = _I
         lib.sgns_fused_launch.argtypes = [_P] * 9 + [_I] * 3 + [_P]
         lib.sgns_fused_launch.restype = _I
@@ -89,11 +89,8 @@ def sgns_fused(ci: torch.Tensor, po: torch.Tensor, no: torch.Tensor,
             g_po, g_no
     loss = torch.empty(1, dtype=torch.float32, device=dev)
     lib = _lib()
-    blocks = lib.sgns_fused_blocks(b, k, d)
-    if blocks < 0:
-        raise ValueError(f"K={k} negatives do not fit the kernel's shared "
-                         f"memory")
-    partial = torch.empty(blocks, dtype=torch.float32, device=dev)
+    partial = torch.empty(lib.sgns_fused_blocks(b), dtype=torch.float32,
+                          device=dev)
     build.check(lib.sgns_fused_launch(
         ci.data_ptr(), po.data_ptr(), no.data_ptr(), valid.data_ptr(),
         partial.data_ptr(), loss.data_ptr(), g_ci.data_ptr(),

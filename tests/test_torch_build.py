@@ -60,11 +60,14 @@ def test_failed_compile_raises_and_leaves_nothing(kernel_dir, monkeypatch):
 
 def test_load_all_starts_every_build_together(kernel_dir, monkeypatch):
     """Each source gets its own nvcc, all running at once: each stand-in
-    compiler waits until the other has started."""
+    compiler waits until the other has started, and fails after 10 s
+    (which a build that ran the two one after the other would reach)."""
     (kernel_dir / "csrc" / "j.cu").write_text("// j\n")
     nvcc = _fake_nvcc(kernel_dir, f'touch "{kernel_dir}/started.$$"\n'
+                      'i=0\n'
                       f'while [ $(ls "{kernel_dir}" | grep -c started) -lt 2 ];'
-                      ' do sleep 0.05; done\n'
+                      ' do i=$((i + 1)); [ $i -gt 200 ] && exit 1;'
+                      ' sleep 0.05; done\n'
                       'while [ "$1" != "-o" ]; do shift; done\n'
                       f'cp "{torch._C.__file__}" "$2"\n')
     monkeypatch.setattr(build, "_nvcc", lambda: nvcc)

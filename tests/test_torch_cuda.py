@@ -99,8 +99,10 @@ def test_fused_walks_on_card_match_cpu(cuda, mode, cap, pipeline):
 
 
 @pytest.mark.parametrize("b,k,d", [(8, 1, 16), (1024, 5, 128),
-                                   (3, 12, 300)])
+                                   (3, 12, 300), (256, 40, 64),
+                                   (256, 5, 1024)])
 def test_sgns_kernel_matches_plain(cuda, b, k, d):
+    """K=40 takes two chunks of negatives."""
     rng = np.random.default_rng(b + k + d)
     args = [torch.from_numpy(a).to(cuda) for a in (
         rng.normal(size=(b, d)).astype(np.float32),

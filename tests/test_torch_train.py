@@ -23,6 +23,7 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core.node2vec import Node2VecConfig
 from repro_torch.data.corpus import sgns_pairs
 from repro_torch.data.store import open_graph
+from repro_torch.engine import WalkEngine, WalkPlan, round_seed
 from repro_torch.kernels.sgns import sgns_fused
 from repro_torch.runtime.fault_tolerance import (WalkRoundRunner,
                                                  elastic_restart)
@@ -152,6 +153,44 @@ def test_train_streamed_matches_jax(jax_streamed, backend):
     for f in ("backend", "rounds", "steps", "pairs", "tokens", "h2d_bytes",
               "h2d_bytes_concat", "shards", "collective_bytes"):
         assert getattr(st, f) == getattr(jst, f), f
+
+
+def _round_curves(losses, rounds):
+    """Per round, the mean loss over each 5% window of its steps."""
+    per = len(losses) // rounds
+    win = max(1, per // 20)
+    return [[float(part[i:i + win].mean())
+             for i in range(0, per - win + 1, win)]
+            for part in np.asarray(losses).reshape(rounds, per)]
+
+
+def test_loss_curve_at_path_c_widths_matches_jax():
+    """chip_smoke.py path C's trainer (D=128, K=5, B=1024, window 10,
+    dense Adam at lr 0.025, fused backend) on two rounds of its walks
+    (every 128th vertex, p=1, q=0.5, length 80) on a wec graph cut to
+    8,192 vertices. The port's per-step losses follow the JAX package's,
+    and in both the loss falls within each round (to at most 0.9 of where
+    the round began, path C's gate) and jumps where round 1 begins."""
+    eng = WalkEngine.build("wec:k=13,deg=100,seed=0", WalkPlan(
+        p=1.0, q=0.5, length=80, cap=128, backend="reference"),
+        device="cpu")
+    starts = np.arange(0, eng.pg.n, 128, dtype=np.int32)
+    walks = [eng.run(starts=starts, seed=round_seed(0, r)).walks
+             for r in range(2)]
+    kw = dict(dim=128, window=10, negatives=5, batch_size=1024, lr=0.025,
+              epochs=1, sgns_backend="fused")
+    port = StreamingSGNSTrainer(eng.pg.n, device="cpu", **kw)
+    port.train(iter(walks))
+    ref = JTrainer(eng.pg.n, **kw)
+    ref.train(iter(walks))
+    got, want = port.loss_history(), np.asarray(ref.loss_history())
+    assert got.shape == want.shape and len(got) % 2 == 0
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    for losses in (got, want):
+        curves = _round_curves(losses, 2)
+        for curve in curves:
+            assert curve[-1] <= 0.9 * curve[0]
+        assert curves[1][0] > curves[0][-1]
 
 
 def test_train_stats_accounting(graph, rounds):
