@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port (walks and SGNS training) on one NVIDIA GPU.
+"""Drive the PyTorch / CUDA port (walks, SGNS training and LM serving) on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -11,6 +12,11 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    1b. ``sgns_fused`` against its plain version at nine shapes up to
    B=65,536, K=40 and D=1,024 (``atol=rtol=3e-4``, masked rows exactly 0,
    two launches on one input ``torch.equal``);
+   1c. ``flash_attention`` against its plain version at the shapes of
+   tests/test_flash_attention.py (GQA, MHA, MQA with window 64, ragged
+   S=96, dh=128, bf16), S=1 and a ragged dh=100, causal and not
+   (``atol=rtol=3e-3`` in float32, 3e-2 in bf16; two launches on one
+   input ``torch.equal``);
 2. main path A — the per-step ``node2vec_step`` kernel on the FN-Cache
    layout: ``WalkEngine.build("wec:k=17,deg=100,seed=0", WalkPlan(
    backend="fused", cap=128, ...))``, two FN-Multi rounds in exact and in
@@ -42,10 +48,25 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
 6. path D — the entry point ``train_streamed`` end to end on the card and
    on the CPU (``sbm:n=400,c=4,pin=0.06,pout=0.004,seed=1`` with
    bench_accuracy's weights, fused walks and fused SGNS): the two
-   micro-F1s must agree within 0.05.
+   micro-F1s must agree within 0.05;
+7. path E — LM serving at yi-6b's full width (d_model 4,096, 32 heads on 4
+   KV heads, head_dim 128, d_ff 11,008, vocab 64,000, bf16 compute, f32
+   params) cut to 4 layers: ``init_params(cfg, PRNGKey(0))`` on the card,
+   ``prefill`` of 4 prompts of 4,096 tokens packed from path A's round-0
+   walks (``walks_to_lm_tokens(walks % vocab, 4096)``), then 32 greedy
+   ``serve_step``s; ``flash_attention`` must launch once per layer at
+   prefill and never at decode, logits must be finite and tokens in
+   range, and layer 0's kernel output within 3e-2 of the plain version's.
+   The kernel, its plain version and PyTorch's
+   ``scaled_dot_product_attention`` (the yardstick, never on the path) are
+   timed at layer 0's inputs, and the kernel and SDPA again at B=1,
+   S=32,768 (checked against the plain version on two heads). Last, the
+   same params in float32 on the card and on the CPU (B=1, S=512, 8
+   greedy tokens): the logits within ``atol=rtol=1e-3``, tokens equal.
 
 It prints the card's name and power limit, the build seconds, walker-steps
-per second for each phase, a ``{"kernels": [...]}`` line, and last
+per second for each walk phase, prefill tokens/s and decode ms/token, a
+``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
 from __future__ import annotations
@@ -60,8 +81,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 dense tensor cores
 CU_SOURCE = "src/repro_torch/kernels/csrc/node2vec_step.cu"
 SGNS_SOURCE = "src/repro_torch/kernels/csrc/sgns.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 LENGTH = 80
 TOP = 8                         # kernels listed per profiled round
 SGNS_TOL = 3e-4                 # the JAX package's kernel tolerance
@@ -74,6 +97,20 @@ C_PROFILE_WALKERS = 137         # ~200 optimizer steps at length 80
 C_FALL = 0.9                    # each round's loss ends at most 0.9 x start
 D_SPEC = "sbm:n=400,c=4,pin=0.06,pout=0.004,seed=1"
 D_F1_GAP = 0.05
+FLASH_TOL = {"float32": 3e-3, "bfloat16": 3e-2}   # the JAX package's tests
+# (atol, rtol) at path E's inputs, whose outputs are ~0.01-0.04 past the
+# first rows: kernel and plain both compute in float32, so in bf16 they
+# differ by the output's rounding (one ulp, at most 2^-7 of a value) and in
+# float32 by the order of the sums
+E_FLASH_TOL = {"bfloat16": (2e-3, 1e-2), "float32": (1e-4, 1e-4)}
+FLASH_SHAPES = [(2, 128, 4, 2, 32, 0), (1, 256, 2, 2, 64, 0),
+                (2, 256, 4, 1, 32, 64), (1, 96, 3, 3, 16, 0),
+                (1, 128, 2, 2, 128, 0), (1, 1, 4, 2, 128, 0),
+                (2, 300, 8, 2, 100, 50)]
+E_ARCH, E_LAYERS = "yi-6b", 4   # published widths, depth cut 32 -> 4
+E_BATCH, E_SEQ, E_GEN = 4, 4096, 32
+E_LONG = 32768                  # prefill_32k's length, a second reading
+E_CPU_SEQ, E_CPU_GEN, E_CPU_TOL = 512, 8, 1e-3
 
 
 def log(msg: str) -> None:
@@ -95,9 +132,9 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -444,6 +481,250 @@ def path_d(np, torch, device=None):
     return micro, macro, st, S.sgns_fused.launches - before
 
 
+def flash_close(torch, got, want, tol, label: str) -> float:
+    """Elementwise ``allclose`` of the kernel's output to the plain
+    version's with ``tol`` = (atol, rtol); returns the largest |diff|."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got, want, atol=tol[0], rtol=tol[1]):
+        raise AssertionError(f"flash_attention {label}: differs from the "
+                             f"plain version by {err} (atol, rtol {tol})")
+    return err
+
+
+def flash_compare(torch, FA, q, k, v, window: int, causal: bool,
+                  label: str, tol=None) -> float:
+    """One input through the kernel twice and the plain version once: the
+    launches must be ``torch.equal``, the kernel within ``tol`` (atol,
+    rtol; by default FLASH_TOL for both) of the plain version. Returns the
+    largest |kernel - plain|."""
+    got = FA.flash_attention(q, k, v, window, causal)
+    again = FA.flash_attention(q, k, v, window, causal)
+    want = FA.flash_attention_plain(q, k, v, window, causal)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"flash_attention {label}: two launches differ")
+    if tol is None:
+        tol = (FLASH_TOL[str(q.dtype).split(".")[-1]],) * 2
+    return flash_close(torch, got, want, tol, label)
+
+
+def check_flash(np, torch, FA) -> float:
+    """Phase 1c: ``flash_attention`` against its plain version on the card,
+    on inputs from a numpy seed, in float32 and bf16, causal and not."""
+    rng = np.random.default_rng(2)
+    err, n = 0.0, 0
+    for b, s, h, kv, dh, window in FLASH_SHAPES:
+        arrays = [rng.normal(size=(b, s, heads, dh)).astype(np.float32)
+                  for heads in (h, kv, kv)]
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = [torch.from_numpy(a).cuda().to(dt) for a in arrays]
+            for causal in (True, False):
+                err = max(err, flash_compare(
+                    torch, FA, q, k, v, window, causal,
+                    f"B={b} S={s} H={h} KV={kv} dh={dh} window={window} "
+                    f"{dt} causal={causal}"))
+                n += 1
+    log(f"flash_attention == plain (atol=rtol 3e-3 f32, 3e-2 bf16; max "
+        f"|err| {err:.3g}), deterministic, on {n} cases")
+    return err
+
+
+def flash_bound(b: int, s: int, h: int, kv: int, dh: int):
+    """Least time for causal bf16 attention: q, k, v read once and o
+    written once, against 4 * dh flops for each of the s (s + 1) / 2
+    unmasked (query, key) pairs of a head at the bf16 tensor-core rate."""
+    nbytes = 2 * b * s * dh * (2 * h + 2 * kv)
+    return bound_ms(nbytes, 4 * b * h * dh * (s * (s + 1) // 2),
+                    BF16_OPS_PER_S)
+
+
+def sdpa_ms(torch, q, k, v, reps: int) -> float:
+    """PyTorch's fused attention on the same inputs (the yardstick): GQA in
+    place, causal, on a fused backend only (the math backend would
+    materialize the scores)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        return cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True), reps)
+
+
+def serve(torch, M, cfg, params, tokens, gen: int):
+    """``prefill`` then ``gen - 1`` greedy ``serve_step``s; returns (the
+    logits of every step [gen, B, V], the tokens [B, gen], prefill seconds,
+    decode seconds, kernel launches at prefill and at decode)."""
+    from repro_torch.kernels import flash_attention as FA
+    dev = params["embed"]["tok"].device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    b, s = tokens.shape
+    sync()
+    FA.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    logits, caches = M.prefill(cfg, params, {"tokens": tokens},
+                               max_len=s + gen)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    at_prefill = FA.flash_attention.launches
+    outs, toks = [logits], [torch.argmax(logits, -1)]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, caches = M.serve_step(cfg, params, toks[-1], s + i, caches)
+        outs.append(logits)
+        toks.append(torch.argmax(logits, -1))
+    sync()
+    return (torch.stack(outs), torch.stack(toks, 1), t_prefill,
+            time.perf_counter() - t0, at_prefill,
+            FA.flash_attention.launches - at_prefill)
+
+
+def path_e(np, torch, walks, dev="cuda"):
+    """Path E: LM serving at yi-6b's full width, 4 layers, with the kernel
+    at every prefill layer; then the kernel's readings at layer 0's inputs
+    and at S=32,768, and the same params in float32 on card and CPU.
+    Returns (launches, max |err|, readings)."""
+    import dataclasses
+    from repro_torch import random as jr
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import walks_to_lm_tokens
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import prefill_qkv
+    from repro_torch.models.layers import embed_tokens, rms_norm
+    cfg = dataclasses.replace(get_config(E_ARCH), num_layers=E_LAYERS)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, jr.PRNGKey(0), dev)
+    torch.cuda.synchronize()
+    log(f"E: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab} layers={cfg.num_layers} ({cfg.param_count():,} "
+        f"params) initialised on the card in {time.perf_counter() - t0:.2f} "
+        f"s host")
+    tokens = torch.from_numpy(walks_to_lm_tokens(
+        walks % cfg.vocab, E_SEQ)[:E_BATCH]).to(dev)
+    logits, toks, t_pre, t_dec, launches, dec_launches = serve(
+        torch, M, cfg, params, tokens, E_GEN + 1)
+    if (launches, dec_launches) != (cfg.num_layers, 0):
+        raise AssertionError(f"E: flash_attention launched {launches} times "
+                             f"at prefill and {dec_launches} at decode, want "
+                             f"{cfg.num_layers} and 0")
+    if not bool(torch.isfinite(logits).all()) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab:
+        raise AssertionError("E: non-finite logits or tokens out of range")
+    log(f"E: prefill B={E_BATCH} S={E_SEQ}: {t_pre:.4f} s = "
+        f"{E_BATCH * E_SEQ / t_pre:.6g} tokens/s; decode {E_GEN} steps: "
+        f"{t_dec / E_GEN * 1e3:.4f} ms/token; flash_attention launches "
+        f"{launches} at prefill (== layers), {dec_launches} at decode; "
+        f"tokens {toks[0, :8].tolist()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, caches = M.prefill(cfg, params, {"tokens": tokens},
+                          max_len=E_SEQ + E_GEN + 1)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    log(f"E: a second (warm) prefill {warm:.4f} s = "
+        f"{E_BATCH * E_SEQ / warm:.6g} tokens/s")
+    profile_round(torch, lambda: M.prefill(cfg, params, {"tokens": tokens},
+                                           max_len=E_SEQ + E_GEN + 1),
+                  "E prefill", "prefill")
+
+    steps = min(8, E_GEN)
+
+    def decode():
+        tok = toks[:, 0]
+        for i in range(steps):
+            tok = torch.argmax(M.serve_step(cfg, params, tok, E_SEQ + i,
+                                            caches)[0], -1)
+    profile_round(torch, decode, "E decode", f"{steps} steps")
+    del caches
+
+    # the kernel at layer 0's inputs
+    blk = {k: v[0] for k, v in params["blocks"]["l0"]["attn"].items()}
+    h = rms_norm(embed_tokens(cfg, params["embed"], tokens),
+                 params["blocks"]["l0"]["pre_norm"][0])
+    q, k, v = prefill_qkv(cfg, blk, h, torch.arange(E_SEQ, device=dev))
+    del h
+    err = flash_compare(torch, FA, q, k, v, 0, True, "path E layer 0",
+                        E_FLASH_TOL["bfloat16"])
+    err32 = flash_compare(torch, FA, q.float(), k.float(), v.float(), 0,
+                          True, "path E layer 0 in float32",
+                          E_FLASH_TOL["float32"])
+    r = {"ms": cuda_ms(torch, lambda: FA.flash_attention(q, k, v), 5),
+         "plain_ms": cuda_ms(torch, lambda: FA.flash_attention_plain(
+             q, k, v), 2),
+         "library_ms": sdpa_ms(torch, q, k, v, 20),
+         "bound": flash_bound(*q.shape[:3], k.shape[2], q.shape[3])}
+    log(f"flash_attention B={E_BATCH} S={E_SEQ} H={cfg.num_heads} "
+        f"KV={cfg.num_kv_heads} dh={cfg.head_dim} bf16 (path E layer 0): "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+        f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+        f"({r['bound'][1]}), max |kernel - plain| {err:.3g} (atol, rtol "
+        f"{E_FLASH_TOL['bfloat16']}); the same q, k, v in float32 "
+        f"{err32:.3g} (atol, rtol {E_FLASH_TOL['float32']})")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # a second reading at prefill_32k's length; the plain version on two
+    # heads only (the first and the last, each with its KV head), in bf16
+    # and with those heads in float32
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((1, E_LONG, heads, cfg.head_dim), generator=g,
+                           device=dev).to(torch.bfloat16)
+               for heads in (cfg.num_heads, cfg.num_kv_heads,
+                             cfg.num_kv_heads))
+    pick = [0, cfg.num_heads - 1]
+    kv_pick = [h // cfg.q_per_kv for h in pick]
+    got = FA.flash_attention(q, k, v)[:, :, pick]
+    q2, k2, v2 = (t[:, :, i].contiguous()
+                  for t, i in ((q, pick), (k, kv_pick), (v, kv_pick)))
+    want = FA.flash_attention_plain(q2, k2, v2)
+    torch.cuda.synchronize()
+    err_long = flash_close(torch, got, want, E_FLASH_TOL["bfloat16"],
+                           f"S={E_LONG} on two heads")
+    del got, want
+    err_long32 = flash_compare(torch, FA, q2.float(), k2.float(),
+                               v2.float(), 0, True,
+                               f"S={E_LONG} on two heads in float32",
+                               E_FLASH_TOL["float32"])
+    torch.cuda.empty_cache()
+    r["ms_32k"] = cuda_ms(torch, lambda: FA.flash_attention(q, k, v), 2)
+    r["library_ms_32k"] = sdpa_ms(torch, q, k, v, 5)
+    r["bound_32k"] = flash_bound(1, E_LONG, cfg.num_heads, cfg.num_kv_heads,
+                                 cfg.head_dim)
+    log(f"flash_attention B=1 S={E_LONG} bf16: {r['ms_32k']:.4f} ms, SDPA "
+        f"{r['library_ms_32k']:.4f} ms, bound {r['bound_32k'][0]:.4f} ms "
+        f"({r['bound_32k'][1]}), max |kernel - plain| on 2 heads "
+        f"{err_long:.3g}, in float32 {err_long32:.3g}")
+    del q, k, v, q2, k2, v2
+
+    # card vs CPU: the same params, float32 compute
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    prompt = torch.from_numpy(walks_to_lm_tokens(walks % cfg.vocab,
+                                                 E_CPU_SEQ)[:1])
+    card = serve(torch, M, cfg32, params, prompt.to(dev), E_CPU_GEN)
+    host_params = _to_cpu(params)
+    del params
+    torch.cuda.empty_cache()
+    host = serve(torch, M, cfg32, host_params, prompt, E_CPU_GEN)
+    gap = float((card[0].cpu() - host[0]).abs().max())
+    log(f"E: float32 B=1 S={E_CPU_SEQ}, {E_CPU_GEN} greedy tokens: card vs "
+        f"CPU logits max |diff| {gap:.3g} (prefill {card[2]:.3f} s card, "
+        f"{host[2]:.3f} s CPU); tokens {card[1][0].tolist()} on the card, "
+        f"{host[1][0].tolist()} on the CPU")
+    if not torch.allclose(card[0].cpu(), host[0], atol=E_CPU_TOL,
+                          rtol=E_CPU_TOL) or \
+            not torch.equal(card[1].cpu(), host[1]):
+        raise AssertionError("E: card and CPU disagree in float32")
+    return launches, max(err, err_long), r
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
 def drive(torch, engine, rounds: int):
     """Run ``rounds`` FN-Multi rounds; returns (walks list, seconds)."""
     torch.cuda.synchronize()
@@ -469,6 +750,7 @@ def main() -> int:
     from repro_torch.core.walk import step_uniforms, unified_row
     from repro_torch.engine import WalkEngine, WalkPlan
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import node2vec_step as K
     from repro_torch.kernels import sgns as S
 
@@ -480,11 +762,15 @@ def main() -> int:
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    build.load_all(("node2vec_step", "sgns"))
+    build.load_all(("node2vec_step", "sgns", "flash_attention"))
     log(f"kernel build: {time.perf_counter() - t0:.2f} s host")
 
     step_err, walk_err = check_kernels(np, torch, K, PAD_ID)
     sgns_err = check_sgns(np, torch, S)
+    # float32 products stay float32 (the card-vs-CPU check of path E)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flash_err = check_flash(np, torch, FA)
 
     # ---- main path A: per-step kernel, FN-Cache ------------------------
     spec_a = "wec:k=17,deg=100,seed=0"
@@ -504,6 +790,8 @@ def main() -> int:
         K.node2vec_walk.launches = 0
         walks, secs = drive(torch, fused, 2)
         step_launches[mode] = K.node2vec_step.launches
+        if mode == "exact":
+            lm_walks = walks[0]               # path E's prompts
         if (K.node2vec_step.launches, K.node2vec_walk.launches) != \
                 (2 * (LENGTH - 1), 0):
             raise AssertionError(
@@ -655,6 +943,12 @@ def main() -> int:
     if abs(micro - micro_cpu) > D_F1_GAP:
         raise AssertionError(f"D: micro-F1 card {micro} vs CPU {micro_cpu}")
 
+    # ---- path E: LM serving, flash_attention at every prefill layer ----
+    del fused, ref, pg_b, walks, ref_walks, walk_args, rand, tail, want
+    torch.cuda.empty_cache()
+    flash_launches, err, fl = path_e(np, torch, lm_walks)
+    flash_err = max(flash_err, err)
+
     kernels = [
         {"name": "node2vec_step", "route": "cuda", "source": CU_SOURCE,
          "replaces": "src/repro/kernels/node2vec_step.py:92",
@@ -673,6 +967,15 @@ def main() -> int:
          "bound_by": sgns_bnd[1], "library_ms": None,
          "ms_bw": bw_ms, "plain_ms_bw": bw_plain_ms, "bound_ms_bw": bw_bnd[0],
          "bound_by_bw": bw_bnd[1]},
+        {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+         "replaces": "src/repro/kernels/flash_attention.py:93",
+         "launches": flash_launches, "max_abs_err": flash_err,
+         "ms": fl["ms"], "plain_ms": fl["plain_ms"],
+         "bound_ms": fl["bound"][0], "bound_by": fl["bound"][1],
+         "library_ms": fl["library_ms"],
+         "ms_32k": fl["ms_32k"], "library_ms_32k": fl["library_ms_32k"],
+         "bound_ms_32k": fl["bound_32k"][0],
+         "bound_by_32k": fl["bound_32k"][1]},
     ]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,11 @@
+"""phi3.5-moe-42b-a6.6b — MoE 16 experts top-2.
+[hf:microsoft/Phi-3.5-MoE-instruct; hf] 32L d_model=4096 32H (GQA kv=8)
+d_ff=6400 vocab=32064."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3.5-moe-42b-a6.6b", family="moe",
+    num_layers=32, d_model=4096, num_heads=32, num_kv_heads=8, head_dim=128,
+    d_ff=6400, vocab=32064, mlp_act="swiglu",
+    moe_experts=16, moe_top_k=2, moe_every=1, rope_theta=1e4,
+)

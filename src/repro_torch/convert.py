@@ -2,9 +2,10 @@
 
 This system's counterpart of carrying weights across: a device layout built
 by ``repro.core.graph.PaddedGraph.build``, a ``jax.random`` key, SGNS
-parameters and Adam state, each handed over as numpy arrays (``np.asarray``
-of every field), become the port's :class:`PaddedGraph`, key, params dict
-and :class:`AdamState`. Nothing here imports JAX.
+parameters and Adam state, and the LM's params, each handed over as numpy
+arrays (``np.asarray`` of every field), become the port's
+:class:`PaddedGraph`, key, params dicts and :class:`AdamState`. Nothing
+here imports JAX.
 """
 from __future__ import annotations
 
@@ -65,3 +66,41 @@ def adam_state_from_numpy(state, device=None) -> AdamState:
                          device=dev)
     return AdamState(count, _tables(state["mu"], dev),
                      _tables(state["nu"], dev))
+
+
+def _tree(tree, dev: torch.device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, dev) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(dev)
+
+
+def lm_params_from_numpy(params: dict, cfg, device=None) -> dict:
+    """The JAX LM ``init_params`` pytree (``np.asarray`` of each leaf) ->
+    the port's params (tensors of the same dtypes on ``device``). Checks
+    the tree's top level, the table shape and the superblock stacking
+    against ``cfg``."""
+    if set(params) != {"embed", "blocks"}:
+        raise ValueError(f"expected params with 'embed' and 'blocks', got "
+                         f"{sorted(params)}")
+    tok = np.shape(params["embed"]["tok"])
+    if tok != (cfg.vocab, cfg.d_model):
+        raise ValueError(f"embedding table {tok} does not fit {cfg.name}: "
+                         f"({cfg.vocab}, {cfg.d_model})")
+    want = {f"l{i}" for i in range(len(cfg.superblock()))}
+    if set(params["blocks"]) != want:
+        raise ValueError(f"blocks {sorted(params['blocks'])}, expected "
+                         f"{sorted(want)}")
+    out = _tree(params, resolve_device(device))
+    for name, leaf in _leaves(out["blocks"]):
+        if leaf.shape[0] != cfg.num_superblocks:
+            raise ValueError(f"blocks/{name} stacks {leaf.shape[0]} "
+                             f"superblocks, expected {cfg.num_superblocks}")
+    return out
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v

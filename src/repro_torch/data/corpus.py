@@ -3,8 +3,8 @@
 Host-side numpy, as in the JAX package: sliding-window (center, context)
 pairs and unigram^0.75 negative sampling through the port's own Vose alias
 tables (``repro_torch.core.alias.build_alias``, identical to the JAX
-package's), so batches equal the reference's integer for integer.
-``walks_to_lm_tokens`` belongs to the LM slice and is not ported yet.
+package's), so batches equal the reference's integer for integer;
+``walks_to_lm_tokens`` packs walks into LM prompts.
 """
 from __future__ import annotations
 
@@ -82,3 +82,17 @@ def walks_to_sgns_batches(walks: np.ndarray, vocab: int, window: int,
                 neg[:b] = sampler.sample(rng, (b, negatives))
             valid = np.pad(np.ones(b, np.float32), (0, pad))
             yield {"center": c, "pos": p, "neg": neg, "valid": valid}
+
+
+def walks_to_lm_tokens(walks: np.ndarray, seq_len: int,
+                       bos: int | None = None) -> np.ndarray:
+    """Pack walk corpus into [N, seq_len] LM training sequences (token ids are
+    vertex ids; optional BOS separates walks)."""
+    if bos is not None:
+        w, _ = walks.shape
+        stream = np.concatenate(
+            [np.full((w, 1), bos, walks.dtype), walks], axis=1).reshape(-1)
+    else:
+        stream = walks.reshape(-1)
+    n = stream.shape[0] // seq_len
+    return stream[:n * seq_len].reshape(n, seq_len).astype(np.int32)

@@ -16,8 +16,9 @@ split into (hi, lo) words:
                          with (o0, o1) = threefry(key, (0, 0))
 
 Shaped draws (the SGNS stage's ``randint``, ``uniform`` and
-``permutation``) hash a 64-bit iota counter, split into (hi, lo) words, and
-keep ``o0 ^ o1`` of each: :func:`random_bits`.
+``permutation``, the LM's ``normal`` initialisers and ``categorical``
+sampling) hash a 64-bit iota counter, split into (hi, lo) words, and keep
+``o0 ^ o1`` of each: :func:`random_bits`.
 
 A key is an int64 tensor whose last axis holds the two uint32 words; every
 function is vectorised over the leading axes. uint32 arithmetic is emulated
@@ -96,17 +97,79 @@ def _to_float(bits: torch.Tensor) -> torch.Tensor:
     return fbits.to(torch.int32).view(torch.float32) - 1.0
 
 
-def uniform(key: torch.Tensor, shape=None) -> torch.Tensor:
-    """``jax.random.uniform``.
+def uniform(key: torch.Tensor, shape=None, minval=0.0,
+            maxval=1.0) -> torch.Tensor:
+    """``jax.random.uniform`` (float32).
 
     ``shape=None``: one scalar draw per key, batched over key [..., 2] ->
-    [...] float32. Otherwise ``key`` is one [2] key and the result has
-    ``shape`` (``jax.random.uniform(key, shape)``)."""
+    [...]. Otherwise ``key`` is one [2] key and the result has ``shape``
+    (``jax.random.uniform(key, shape, minval=, maxval=)``): JAX's
+    ``max(minval, floats * (maxval - minval) + minval)`` in float32, where
+    XLA's CPU backend fuses the scale and shift into one multiply-add (the
+    float32 product is exact in float64 and the sum is rounded once)."""
     if shape is not None:
-        return _to_float(random_bits(key, shape))
-    zero = torch.zeros((), dtype=torch.int64, device=key.device)
-    out = _counter(key, zero, zero)
-    return _to_float(out[..., 0] ^ out[..., 1])
+        floats = _to_float(random_bits(key, shape))
+    else:
+        zero = torch.zeros((), dtype=torch.int64, device=key.device)
+        out = _counter(key, zero, zero)
+        floats = _to_float(out[..., 0] ^ out[..., 1])
+    if (minval, maxval) == (0.0, 1.0):      # the range leaves floats as is
+        return floats
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, (floats.double() * (hi - lo).double()
+                              + lo.double()).float())
+
+
+# Giles' single-precision erf^-1 ("Approximating the erfinv function",
+# GPU Computing Gems, 2011), the polynomial XLA evaluates for float32
+# ``erf_inv``: coefficients for w = -log1p(-x^2) < 5, then for w >= 5.
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``erf^-1`` as XLA computes it (Horner steps as fused
+    multiply-adds: the float32 product is exact in float64 and the sum is
+    rounded once). ``torch.erfinv`` uses another algorithm and differs by up
+    to ~90 ulps; this agrees with ``jax.lax.erf_inv`` on the CPU to 3 ulps
+    (bit for bit on ~99% of inputs, tests/test_torch_lm.py)."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    t = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = torch.full_like(x, _ERFINV_SMALL[0])
+    p = torch.where(small, p, torch.full_like(x, _ERFINV_LARGE[0]))
+    for a, b in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
+        c = torch.where(small, torch.full_like(x, a), torch.full_like(x, b))
+        p = (c.double() + p.double() * t).float()
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (float32): JAX's ``_normal_real``,
+    ``sqrt(2) * erf_inv(uniform(key, shape, nextafter(-1, 0), 1))``. The
+    uniforms are bit-exact; :func:`erf_inv` agrees to 3 ulps."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    return erf_inv(u) * np.float32(np.sqrt(2.0))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis: the
+    Gumbel-max draw ``argmax(logits + gumbel)``, ``gumbel = -log(-log(u))``
+    with ``u`` uniform in ``[finfo.tiny, 1)`` of the logits' shape (JAX's
+    default "low" mode). Returns int64 indices of ``logits.shape[:-1]``."""
+    if logits.dtype != torch.float32:
+        raise TypeError(f"logits must be float32, got {logits.dtype}")
+    u = uniform(key.to(logits.device), logits.shape,
+                float(np.finfo(np.float32).tiny), 1.0)
+    return torch.argmax(logits + (-torch.log(-torch.log(u))), dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version, and the fused walk backend and the fused streamed SGNS trainer on
-the card against the CPU.
+version, and the fused walk backend, the fused streamed SGNS trainer and
+LM serving (prefill through ``flash_attention``) on the card against the
+CPU.
 
 They skip where no card is present. On a machine with a card (which has
 no JAX, so this file imports none and the repository's conftest, which
@@ -9,14 +10,21 @@ does, is skipped)::
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.graph import PAD_ID
 from repro_torch.engine import WalkEngine, WalkPlan
+from repro_torch import random as jr
+from repro_torch.configs import smoke_config
 from repro_torch.core.node2vec import Node2VecConfig
 from repro_torch.kernels import node2vec_step as K
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.models import model as M
 from repro_torch.kernels.sgns import sgns_fused, sgns_fused_plain
 from repro_torch.train.stream import train_streamed
 
@@ -133,3 +141,58 @@ def test_fused_streamed_trainer_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(card, cpu, rtol=2e-4, atol=2e-4)
     again, _ = train_streamed(spec, cfg)
     assert np.array_equal(card, again)      # deterministic on the card
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,window", [
+    (2, 128, 4, 2, 32, 0), (2, 256, 4, 1, 32, 64), (1, 96, 3, 3, 16, 0),
+    (1, 1, 4, 2, 128, 0), (2, 300, 8, 2, 100, 50), (1, 130, 2, 1, 256, 0)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-3),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain(cuda, b, s, h, kv, dh, window, dtype, tol,
+                                    causal):
+    rng = np.random.default_rng(s + dh)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, dh)).astype(
+        np.float32)).to(cuda, dtype) for n in (h, kv, kv))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window, causal)
+    again = flash_attention(q, k, v, window, causal)
+    assert flash_attention.launches == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), flash_attention_plain(
+        q, k, v, window, causal).float(), atol=tol, rtol=tol)
+
+
+def _cpu(tree):
+    return {k: _cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch,window", [("yi-6b", 0), ("minitron-4b", 0),
+                                         ("yi-6b", 8)])
+def test_serving_on_card_matches_cpu(cuda, arch, window):
+    """float32 smoke config: prefill launches the kernel once per layer,
+    decode never; logits agree with the CPU and greedy tokens are equal."""
+    cfg = dataclasses.replace(smoke_config(arch), window=window)
+    params = M.init_params(cfg, jr.PRNGKey(0))
+    host = _cpu(params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 20)))
+    outs = {}
+    for name, p in (("card", params), ("cpu", host)):
+        dev = p["embed"]["tok"].device
+        before = flash_attention.launches
+        logits, caches = M.prefill(cfg, p, {"tokens": tokens.to(dev)},
+                                   max_len=28)
+        launched = flash_attention.launches - before
+        seq = [logits]
+        for i in range(8):
+            logits, caches = M.serve_step(cfg, p, seq[-1].argmax(-1), 20 + i,
+                                          caches)
+            seq.append(logits)
+        outs[name] = torch.stack(seq).cpu()
+        assert launched == (cfg.num_layers if name == "card" else 0)
+        assert flash_attention.launches - before == launched
+    torch.testing.assert_close(outs["card"], outs["cpu"], atol=1e-4,
+                               rtol=1e-4)
+    assert torch.equal(outs["card"].argmax(-1), outs["cpu"].argmax(-1))
