@@ -14,9 +14,11 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    two launches on one input ``torch.equal``);
    1c. ``flash_attention`` against its plain version at the shapes of
    tests/test_flash_attention.py (GQA, MHA, MQA with window 64, ragged
-   S=96, dh=128, bf16), S=1 and a ragged dh=100, causal and not
-   (``atol=rtol=3e-3`` in float32, 3e-2 in bf16; two launches on one
-   input ``torch.equal``);
+   S=96, dh=128, bf16), S=1, a ragged dh=100, window 50 at dh=128 and
+   S=130 at dh=256, causal and not (``atol=rtol=3e-3`` in float32, 3e-2
+   in bf16; two launches on one input ``torch.equal``): both routes, the
+   bf16 tensor-core kernel (bf16, dh a multiple of 16) and the float32
+   SIMT kernel (float32, and bf16 at dh=100);
 2. main path A — the per-step ``node2vec_step`` kernel on the FN-Cache
    layout: ``WalkEngine.build("wec:k=17,deg=100,seed=0", WalkPlan(
    backend="fused", cap=128, ...))``, two FN-Multi rounds in exact and in
@@ -55,23 +57,32 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    ``prefill`` of 4 prompts of 4,096 tokens packed from path A's round-0
    walks (``walks_to_lm_tokens(walks % vocab, 4096)``), then 32 greedy
    ``serve_step``s; ``flash_attention`` must launch once per layer at
-   prefill and never at decode, logits must be finite and tokens in
-   range, and layer 0's kernel output within 3e-2 of the plain version's.
-   The kernel, its plain version and PyTorch's
+   prefill, every launch on the tensor-core route, and never at decode,
+   logits must be finite and tokens in range, and layer 0's kernel output
+   within (atol 2e-3, rtol 1e-2) of the plain version's. The kernel, its
+   plain version, the SIMT route on the same bf16 inputs and PyTorch's
    ``scaled_dot_product_attention`` (the yardstick, never on the path) are
-   timed at layer 0's inputs, and the kernel and SDPA again at B=1,
-   S=32,768 (checked against the plain version on two heads). Last, the
+   timed at layer 0's inputs, and the kernel, the SIMT route and SDPA
+   again at B=1, S=32,768 (checked, and the plain version timed, on two
+   heads); beside them the kernel with P rounded to bf16 once (built from
+   the same source without its lo product, never on the path: what the
+   split costs, and how many outputs one rounding moves past the check).
+   Last, the
    same params in float32 on the card and on the CPU (B=1, S=512, 8
    greedy tokens): the logits within ``atol=rtol=1e-3``, tokens equal.
 
-It prints the card's name and power limit, the build seconds, walker-steps
+It prints the card's name and power limit, the build seconds, the
+registers and spills of the tensor-core kernel, walker-steps
 per second for each walk phase, prefill tokens/s and decode ms/token, a
 ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import math
+import shutil
 import subprocess
 import sys
 import time
@@ -84,7 +95,10 @@ F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 dense tensor cores
 CU_SOURCE = "src/repro_torch/kernels/csrc/node2vec_step.cu"
 SGNS_SOURCE = "src/repro_torch/kernels/csrc/sgns.cu"
-FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
+FLASH_SIMT_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+KERNEL_LIBS = ("node2vec_step", "sgns", "flash_attention",
+               "flash_attention_sm90")
 LENGTH = 80
 TOP = 8                         # kernels listed per profiled round
 SGNS_TOL = 3e-4                 # the JAX package's kernel tolerance
@@ -99,14 +113,18 @@ D_SPEC = "sbm:n=400,c=4,pin=0.06,pout=0.004,seed=1"
 D_F1_GAP = 0.05
 FLASH_TOL = {"float32": 3e-3, "bfloat16": 3e-2}   # the JAX package's tests
 # (atol, rtol) at path E's inputs, whose outputs are ~0.01-0.04 past the
-# first rows: kernel and plain both compute in float32, so in bf16 they
-# differ by the output's rounding (one ulp, at most 2^-7 of a value) and in
-# float32 by the order of the sums
+# first rows. In bf16 the tensor-core kernel feeds the float32 weights P
+# to the P.V product as bf16 hi and lo parts, within ~2^-16 of P (one bf16
+# rounding of P, up to 2^-9 of the weighted sum of |v|, moves outputs past
+# this check), and rounds o once (one ulp, at most 2^-7 of a value); the
+# plain version keeps P in float32. In float32 (the SIMT kernel) the two
+# differ by the order of the sums
 E_FLASH_TOL = {"bfloat16": (2e-3, 1e-2), "float32": (1e-4, 1e-4)}
 FLASH_SHAPES = [(2, 128, 4, 2, 32, 0), (1, 256, 2, 2, 64, 0),
                 (2, 256, 4, 1, 32, 64), (1, 96, 3, 3, 16, 0),
                 (1, 128, 2, 2, 128, 0), (1, 1, 4, 2, 128, 0),
-                (2, 300, 8, 2, 100, 50)]
+                (2, 300, 8, 2, 100, 50), (2, 300, 8, 2, 128, 50),
+                (1, 130, 2, 1, 256, 0)]
 E_ARCH, E_LAYERS = "yi-6b", 4   # published widths, depth cut 32 -> 4
 E_BATCH, E_SEQ, E_GEN = 4, 4096, 32
 E_LONG = 32768                  # prefill_32k's length, a second reading
@@ -509,11 +527,19 @@ def flash_compare(torch, FA, q, k, v, window: int, causal: bool,
     return flash_close(torch, got, want, tol, label)
 
 
+def flash_counts(FA):
+    """(total, tensor-core, SIMT) launches of ``flash_attention``."""
+    f = FA.flash_attention
+    return f.launches, f.launches_tc, f.launches_simt
+
+
 def check_flash(np, torch, FA) -> float:
     """Phase 1c: ``flash_attention`` against its plain version on the card,
-    on inputs from a numpy seed, in float32 and bf16, causal and not."""
+    on inputs from a numpy seed, in float32 and bf16, causal and not; both
+    routes must run."""
     rng = np.random.default_rng(2)
     err, n = 0.0, 0
+    before = flash_counts(FA)
     for b, s, h, kv, dh, window in FLASH_SHAPES:
         arrays = [rng.normal(size=(b, s, heads, dh)).astype(np.float32)
                   for heads in (h, kv, kv)]
@@ -525,18 +551,64 @@ def check_flash(np, torch, FA) -> float:
                     f"B={b} S={s} H={h} KV={kv} dh={dh} window={window} "
                     f"{dt} causal={causal}"))
                 n += 1
+    total, tc, simt = (a - b for a, b in zip(flash_counts(FA), before))
+    if not (tc and simt and total == tc + simt == 2 * n):
+        raise AssertionError(f"1c: launches {total} (tensor-core {tc}, SIMT "
+                             f"{simt}) for {n} cases")
     log(f"flash_attention == plain (atol=rtol 3e-3 f32, 3e-2 bf16; max "
-        f"|err| {err:.3g}), deterministic, on {n} cases")
+        f"|err| {err:.3g}), deterministic, on {n} cases; launches "
+        f"tensor-core {tc}, SIMT {simt}")
     return err
+
+
+def flash_flops(b: int, s: int, h: int, dh: int) -> int:
+    """4 * dh flops for each of the s (s + 1) / 2 unmasked (query, key)
+    pairs of a causal head."""
+    return 4 * b * h * dh * (s * (s + 1) // 2)
 
 
 def flash_bound(b: int, s: int, h: int, kv: int, dh: int):
     """Least time for causal bf16 attention: q, k, v read once and o
-    written once, against 4 * dh flops for each of the s (s + 1) / 2
-    unmasked (query, key) pairs of a head at the bf16 tensor-core rate."""
+    written once, against :func:`flash_flops` at the bf16 tensor-core
+    rate."""
     nbytes = 2 * b * s * dh * (2 * h + 2 * kv)
-    return bound_ms(nbytes, 4 * b * h * dh * (s * (s + 1) // 2),
-                    BF16_OPS_PER_S)
+    return bound_ms(nbytes, flash_flops(b, s, h, dh), BF16_OPS_PER_S)
+
+
+def load_one_rounding(build):
+    """The tensor-core kernel with its lo product dropped, so that P is
+    rounded to bf16 once: built from the committed source into
+    build/variants/ to time what the hi/lo split costs and to count the
+    outputs one rounding moves past path E's check. Never on the path."""
+    text = (build.CSRC / "flash_attention_sm90.cu").read_text()
+    one = text.replace("part < 2; ++part", "part < 1; ++part").replace(
+        "flash_attention_sm90_launch(", "flash_attention_sm90_one_launch(")
+    if one.count("part < 1; ++part") != 1 or "_one_launch(" not in one:
+        raise AssertionError("the split's product loop or entry point moved")
+    var = ROOT / "build" / "variants"
+    var.mkdir(parents=True, exist_ok=True)
+    (var / "flash_attention_sm90_one.cu").write_text(one)
+    shutil.copy(build.CSRC / "hopper.cuh", var / "hopper.cuh")
+    csrc, build.CSRC = build.CSRC, var
+    try:
+        lib = build.load("flash_attention_sm90_one")
+    finally:
+        build.CSRC = csrc
+    fn = lib.flash_attention_sm90_one_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+        [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(torch, q, k, v):
+        b, s, h, dh = q.shape
+        o = torch.empty_like(q)
+        build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       o.data_ptr(), b, s, h, k.shape[2], dh,
+                       dh ** -0.5 * math.log2(math.e), 1, 0,
+                       torch.cuda.current_stream().cuda_stream),
+                    "flash_attention one rounding")
+        return o
+    return run
 
 
 def sdpa_ms(torch, q, k, v, reps: int) -> float:
@@ -555,19 +627,22 @@ def sdpa_ms(torch, q, k, v, reps: int) -> float:
 def serve(torch, M, cfg, params, tokens, gen: int):
     """``prefill`` then ``gen - 1`` greedy ``serve_step``s; returns (the
     logits of every step [gen, B, V], the tokens [B, gen], prefill seconds,
-    decode seconds, kernel launches at prefill and at decode)."""
+    decode seconds, kernel launches at prefill and at decode, each as
+    (total, tensor-core, SIMT))."""
     from repro_torch.kernels import flash_attention as FA
     dev = params["embed"]["tok"].device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     b, s = tokens.shape
     sync()
     FA.flash_attention.launches = 0
+    FA.flash_attention.launches_tc = 0
+    FA.flash_attention.launches_simt = 0
     t0 = time.perf_counter()
     logits, caches = M.prefill(cfg, params, {"tokens": tokens},
                                max_len=s + gen)
     sync()
     t_prefill = time.perf_counter() - t0
-    at_prefill = FA.flash_attention.launches
+    at_prefill = flash_counts(FA)
     outs, toks = [logits], [torch.argmax(logits, -1)]
     t0 = time.perf_counter()
     for i in range(gen - 1):
@@ -577,14 +652,15 @@ def serve(torch, M, cfg, params, tokens, gen: int):
     sync()
     return (torch.stack(outs), torch.stack(toks, 1), t_prefill,
             time.perf_counter() - t0, at_prefill,
-            FA.flash_attention.launches - at_prefill)
+            tuple(a - b for a, b in zip(flash_counts(FA), at_prefill)))
 
 
-def path_e(np, torch, walks, dev="cuda"):
+def path_e(np, torch, walks, one, dev="cuda"):
     """Path E: LM serving at yi-6b's full width, 4 layers, with the kernel
     at every prefill layer; then the kernel's readings at layer 0's inputs
-    and at S=32,768, and the same params in float32 on card and CPU.
-    Returns (launches, max |err|, readings)."""
+    and at S=32,768 (beside them ``one``, the kernel with P rounded to bf16
+    once), and the same params in float32 on card and CPU. Returns
+    (launches, max |err|, readings)."""
     import dataclasses
     from repro_torch import random as jr
     from repro_torch.configs import get_config
@@ -606,18 +682,21 @@ def path_e(np, torch, walks, dev="cuda"):
         walks % cfg.vocab, E_SEQ)[:E_BATCH]).to(dev)
     logits, toks, t_pre, t_dec, launches, dec_launches = serve(
         torch, M, cfg, params, tokens, E_GEN + 1)
-    if (launches, dec_launches) != (cfg.num_layers, 0):
-        raise AssertionError(f"E: flash_attention launched {launches} times "
-                             f"at prefill and {dec_launches} at decode, want "
-                             f"{cfg.num_layers} and 0")
+    n = cfg.num_layers
+    if (launches, dec_launches) != ((n, n, 0), (0, 0, 0)):
+        raise AssertionError(f"E: flash_attention launched (total, "
+                             f"tensor-core, SIMT) {launches} at prefill and "
+                             f"{dec_launches} at decode, want {(n, n, 0)} "
+                             f"and (0, 0, 0)")
+    launches, by_route = launches[0], launches[1:]
     if not bool(torch.isfinite(logits).all()) or toks.min() < 0 or \
             toks.max() >= cfg.vocab:
         raise AssertionError("E: non-finite logits or tokens out of range")
     log(f"E: prefill B={E_BATCH} S={E_SEQ}: {t_pre:.4f} s = "
         f"{E_BATCH * E_SEQ / t_pre:.6g} tokens/s; decode {E_GEN} steps: "
         f"{t_dec / E_GEN * 1e3:.4f} ms/token; flash_attention launches "
-        f"{launches} at prefill (== layers), {dec_launches} at decode; "
-        f"tokens {toks[0, :8].tolist()}")
+        f"{launches} at prefill (== layers, all tensor-core), "
+        f"{dec_launches[0]} at decode; tokens {toks[0, :8].tolist()}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, caches = M.prefill(cfg, params, {"tokens": tokens},
@@ -651,18 +730,36 @@ def path_e(np, torch, walks, dev="cuda"):
     err32 = flash_compare(torch, FA, q.float(), k.float(), v.float(), 0,
                           True, "path E layer 0 in float32",
                           E_FLASH_TOL["float32"])
-    r = {"ms": cuda_ms(torch, lambda: FA.flash_attention(q, k, v), 5),
+    r = {"ms": cuda_ms(torch, lambda: FA.flash_attention(q, k, v), 20),
          "plain_ms": cuda_ms(torch, lambda: FA.flash_attention_plain(
              q, k, v), 2),
+         "simt_ms": cuda_ms(torch, lambda: FA.launch("simt", q, k, v), 3),
          "library_ms": sdpa_ms(torch, q, k, v, 20),
          "bound": flash_bound(*q.shape[:3], k.shape[2], q.shape[3])}
+    flops = flash_flops(E_BATCH, E_SEQ, cfg.num_heads, cfg.head_dim)
+    r["tflops"] = flops / r["ms"] / 1e9
     log(f"flash_attention B={E_BATCH} S={E_SEQ} H={cfg.num_heads} "
         f"KV={cfg.num_kv_heads} dh={cfg.head_dim} bf16 (path E layer 0): "
-        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
-        f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-        f"({r['bound'][1]}), max |kernel - plain| {err:.3g} (atol, rtol "
-        f"{E_FLASH_TOL['bfloat16']}); the same q, k, v in float32 "
-        f"{err32:.3g} (atol, rtol {E_FLASH_TOL['float32']})")
+        f"tensor-core {r['ms']:.4f} ms = {r['tflops']:.1f} TFLOP/s of "
+        f"{flops:.4g} flops, SIMT route {r['simt_ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+        f"(tensor-core / SDPA {r['ms'] / r['library_ms']:.3f}), bound "
+        f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), max |kernel - plain| "
+        f"{err:.3g} (atol, rtol {E_FLASH_TOL['bfloat16']}); the same q, k, "
+        f"v in float32 {err32:.3g} (atol, rtol {E_FLASH_TOL['float32']})")
+    want = FA.flash_attention_plain(q, k, v).float()
+    diff = (one(torch, q, k, v).float() - want).abs()
+    tol = E_FLASH_TOL["bfloat16"]
+    r["one_rounding_outside"] = int(
+        (diff > tol[0] + tol[1] * want.abs()).sum())
+    r["one_rounding_err"] = float(diff.max())
+    del want, diff
+    r["one_rounding_ms"] = cuda_ms(torch, lambda: one(torch, q, k, v), 20)
+    log(f"flash_attention with P rounded to bf16 once (no lo product) at "
+        f"layer 0: {r['one_rounding_ms']:.4f} ms (the split costs "
+        f"{r['ms'] / r['one_rounding_ms']:.3f}x), max |kernel - plain| "
+        f"{r['one_rounding_err']:.3g}, {r['one_rounding_outside']} outputs "
+        f"outside (atol, rtol {tol})")
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -689,14 +786,25 @@ def path_e(np, torch, walks, dev="cuda"):
                                f"S={E_LONG} on two heads in float32",
                                E_FLASH_TOL["float32"])
     torch.cuda.empty_cache()
-    r["ms_32k"] = cuda_ms(torch, lambda: FA.flash_attention(q, k, v), 2)
+    r["plain_ms_32k_2heads"] = cuda_ms(
+        torch, lambda: FA.flash_attention_plain(q2, k2, v2), 1)
+    r["ms_32k"] = cuda_ms(torch, lambda: FA.flash_attention(q, k, v), 5)
+    r["simt_ms_32k"] = cuda_ms(torch, lambda: FA.launch("simt", q, k, v), 1)
     r["library_ms_32k"] = sdpa_ms(torch, q, k, v, 5)
+    r["one_rounding_ms_32k"] = cuda_ms(torch, lambda: one(torch, q, k, v),
+                                       5)
     r["bound_32k"] = flash_bound(1, E_LONG, cfg.num_heads, cfg.num_kv_heads,
                                  cfg.head_dim)
-    log(f"flash_attention B=1 S={E_LONG} bf16: {r['ms_32k']:.4f} ms, SDPA "
-        f"{r['library_ms_32k']:.4f} ms, bound {r['bound_32k'][0]:.4f} ms "
-        f"({r['bound_32k'][1]}), max |kernel - plain| on 2 heads "
-        f"{err_long:.3g}, in float32 {err_long32:.3g}")
+    flops = flash_flops(1, E_LONG, cfg.num_heads, cfg.head_dim)
+    r["tflops_32k"] = flops / r["ms_32k"] / 1e9
+    log(f"flash_attention B=1 S={E_LONG} bf16: tensor-core "
+        f"{r['ms_32k']:.4f} ms = {r['tflops_32k']:.1f} TFLOP/s, P rounded "
+        f"once {r['one_rounding_ms_32k']:.4f} ms, SIMT route "
+        f"{r['simt_ms_32k']:.4f} ms, SDPA {r['library_ms_32k']:.4f} ms, "
+        f"plain on 2 of {cfg.num_heads} heads "
+        f"{r['plain_ms_32k_2heads']:.4f} ms, bound "
+        f"{r['bound_32k'][0]:.4f} ms ({r['bound_32k'][1]}), max |kernel - "
+        f"plain| on 2 heads {err_long:.3g}, in float32 {err_long32:.3g}")
     del q, k, v, q2, k2, v2
 
     # card vs CPU: the same params, float32 compute
@@ -717,6 +825,7 @@ def path_e(np, torch, walks, dev="cuda"):
                           rtol=E_CPU_TOL) or \
             not torch.equal(card[1].cpu(), host[1]):
         raise AssertionError("E: card and CPU disagree in float32")
+    r["launches_tc"], r["launches_simt"] = by_route
     return launches, max(err, err_long), r
 
 
@@ -762,8 +871,12 @@ def main() -> int:
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    build.load_all(("node2vec_step", "sgns", "flash_attention"))
+    build.load_all(KERNEL_LIBS)
+    one_rounding = load_one_rounding(build)
     log(f"kernel build: {time.perf_counter() - t0:.2f} s host")
+    for line in build.report("flash_attention_sm90").splitlines():
+        if "registers" in line or "spill" in line or "Potential" in line:
+            log(f"  flash_attention_sm90: {line.strip()}")
 
     step_err, walk_err = check_kernels(np, torch, K, PAD_ID)
     sgns_err = check_sgns(np, torch, S)
@@ -946,7 +1059,7 @@ def main() -> int:
     # ---- path E: LM serving, flash_attention at every prefill layer ----
     del fused, ref, pg_b, walks, ref_walks, walk_args, rand, tail, want
     torch.cuda.empty_cache()
-    flash_launches, err, fl = path_e(np, torch, lm_walks)
+    flash_launches, err, fl = path_e(np, torch, lm_walks, one_rounding)
     flash_err = max(flash_err, err)
 
     kernels = [
@@ -969,11 +1082,19 @@ def main() -> int:
          "bound_by_bw": bw_bnd[1]},
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
          "replaces": "src/repro/kernels/flash_attention.py:93",
-         "launches": flash_launches, "max_abs_err": flash_err,
+         "launches": flash_launches, "launches_tc": fl["launches_tc"],
+         "launches_simt": fl["launches_simt"], "max_abs_err": flash_err,
          "ms": fl["ms"], "plain_ms": fl["plain_ms"],
          "bound_ms": fl["bound"][0], "bound_by": fl["bound"][1],
-         "library_ms": fl["library_ms"],
+         "library_ms": fl["library_ms"], "tflops": fl["tflops"],
+         "simt_source": FLASH_SIMT_SOURCE, "simt_ms": fl["simt_ms"],
          "ms_32k": fl["ms_32k"], "library_ms_32k": fl["library_ms_32k"],
+         "simt_ms_32k": fl["simt_ms_32k"],
+         "plain_ms_32k_2heads": fl["plain_ms_32k_2heads"],
+         "tflops_32k": fl["tflops_32k"],
+         "one_rounding_ms": fl["one_rounding_ms"],
+         "one_rounding_ms_32k": fl["one_rounding_ms_32k"],
+         "one_rounding_outside": fl["one_rounding_outside"],
          "bound_ms_32k": fl["bound_32k"][0],
          "bound_by_32k": fl["bound_32k"][1]},
     ]

@@ -1,6 +1,7 @@
 """The kernel build: ``nvcc`` runs once per source text, the library is
-loaded under a name hashed on the source, and a failed compile raises with
-the compiler's output and leaves no library behind. A stand-in compiler
+loaded under a name hashed on the source and the headers it includes, and
+a failed compile raises with the compiler's output and leaves no library
+behind. A stand-in compiler
 copies a loadable shared object, so this runs without the CUDA toolkit."""
 import stat
 
@@ -25,6 +26,7 @@ def kernel_dir(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC", csrc)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
     monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(build, "_REPORTS", {})
     return tmp_path
 
 
@@ -76,3 +78,29 @@ def test_load_all_starts_every_build_together(kernel_dir, monkeypatch):
     built = sorted(p.name.split("-")[0] for p in (kernel_dir / "out").iterdir())
     assert built == ["libj", "libk"]
     assert build.load("j") is libs[1]
+
+
+def test_an_edited_included_header_rebuilds(kernel_dir, monkeypatch):
+    """The headers a source includes, directly or through another header,
+    enter the library's hash: editing one rebuilds, editing a header that
+    nothing includes does not. The compiler's report is kept."""
+    csrc = kernel_dir / "csrc"
+    (csrc / "k.cu").write_text('// v1\n#include "h.cuh"\n#include <cuda.h>\n')
+    (csrc / "h.cuh").write_text('#pragma once\n#include "g.cuh"\n// h1\n')
+    (csrc / "g.cuh").write_text("// g1\n")
+    (csrc / "other.cuh").write_text("// o1\n")
+    calls = kernel_dir / "calls"
+    nvcc = _fake_nvcc(kernel_dir, f'echo x >> "{calls}"\n'
+                      'echo "ptxas info : Used 40 registers" >&2\n'
+                      'while [ "$1" != "-o" ]; do shift; done\n'
+                      f'cp "{torch._C.__file__}" "$2"\n')
+    monkeypatch.setattr(build, "_nvcc", lambda: nvcc)
+    assert build.sources("k") == [csrc / "k.cu", csrc / "h.cuh",
+                                  csrc / "g.cuh"]
+    build.load("k")
+    assert "Used 40 registers" in build.report("k")
+    for header, builds in (("other.cuh", 1), ("g.cuh", 2), ("h.cuh", 3)):
+        (csrc / header).write_text(f"// {header} edited\n")
+        monkeypatch.setattr(build, "_LOADED", {})
+        build.load("k")
+        assert calls.read_text().split() == ["x"] * builds, header

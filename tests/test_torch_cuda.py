@@ -23,7 +23,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.core.node2vec import Node2VecConfig
 from repro_torch.kernels import node2vec_step as K
 from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain, route)
 from repro_torch.models import model as M
 from repro_torch.kernels.sgns import sgns_fused, sgns_fused_plain
 from repro_torch.train.stream import train_streamed
@@ -155,12 +155,39 @@ def test_flash_kernel_matches_plain(cuda, b, s, h, kv, dh, window, dtype, tol,
     q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, dh)).astype(
         np.float32)).to(cuda, dtype) for n in (h, kv, kv))
     before = flash_attention.launches
+    before_tc = flash_attention.launches_tc
     got = flash_attention(q, k, v, window, causal)
     again = flash_attention(q, k, v, window, causal)
     assert flash_attention.launches == before + 2
+    assert flash_attention.launches_tc - before_tc == \
+        (2 if route(dtype, dh) == "tc" else 0)
     assert got.dtype == dtype and torch.equal(got, again)
     torch.testing.assert_close(got.float(), flash_attention_plain(
         q, k, v, window, causal).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,window", [
+    (2, 200, 16, 2, 64, 0), (2, 200, 16, 2, 128, 96), (1, 4100, 8, 1, 128, 0),
+    (1, 4100, 16, 2, 64, 96), (1, 200, 8, 1, 128, 0)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tensor_core_route_matches_plain(cuda, b, s, h, kv, dh, window,
+                                               causal):
+    """bf16 at the model widths (dh 64, 128) on the tensor-core route:
+    ragged S, GQA 8:1, window 96 and not causal, within bf16's 3e-2 of the
+    float32 plain version, two launches equal, no SIMT launch."""
+    rng = np.random.default_rng(s + dh + window)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, dh)).astype(
+        np.float32)).to(cuda, torch.bfloat16) for n in (h, kv, kv))
+    before = (flash_attention.launches, flash_attention.launches_tc,
+              flash_attention.launches_simt)
+    got = flash_attention(q, k, v, window, causal)
+    again = flash_attention(q, k, v, window, causal)
+    after = (flash_attention.launches, flash_attention.launches_tc,
+             flash_attention.launches_simt)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 0)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), flash_attention_plain(
+        q, k, v, window, causal).float(), atol=3e-2, rtol=3e-2)
 
 
 def _cpu(tree):
@@ -168,11 +195,35 @@ def _cpu(tree):
             for k, v in tree.items()}
 
 
+def _serve_logits(cfg, params, tokens, feed):
+    """Prefill 20 tokens, then 8 steps whose input tokens are ``feed``
+    [9, B]: the stacked logits on the CPU and the kernel launches at
+    prefill, (total, tensor-core, SIMT)."""
+    dev = params["embed"]["tok"].device
+    count = lambda: (flash_attention.launches, flash_attention.launches_tc,
+                     flash_attention.launches_simt)
+    before = count()
+    logits, caches = M.prefill(cfg, params, {"tokens": tokens.to(dev)},
+                               max_len=28)
+    launched = tuple(a - b for a, b in zip(count(), before))
+    seq = [logits]
+    for i in range(8):
+        logits, caches = M.serve_step(cfg, params, feed[i].to(dev), 20 + i,
+                                      caches)
+        seq.append(logits)
+    assert tuple(a - b for a, b in zip(count(), before)) == launched
+    return torch.stack(seq).float().cpu(), launched
+
+
 @pytest.mark.parametrize("arch,window", [("yi-6b", 0), ("minitron-4b", 0),
                                          ("yi-6b", 8)])
 def test_serving_on_card_matches_cpu(cuda, arch, window):
     """float32 smoke config: prefill launches the kernel once per layer,
-    decode never; logits agree with the CPU and greedy tokens are equal."""
+    decode never; logits agree with the CPU and greedy tokens are equal.
+    The same params in bf16 (head_dim 16) launch only the tensor-core
+    route, and the card's bf16 logits stay within twice the distance of
+    the CPU's bf16 logits from the CPU's float32 ones (bf16's own error;
+    the kernel and cuBLAS round in other places than the plain path)."""
     cfg = dataclasses.replace(smoke_config(arch), window=window)
     params = M.init_params(cfg, jr.PRNGKey(0))
     host = _cpu(params)
@@ -196,3 +247,15 @@ def test_serving_on_card_matches_cpu(cuda, arch, window):
     torch.testing.assert_close(outs["card"], outs["cpu"], atol=1e-4,
                                rtol=1e-4)
     assert torch.equal(outs["card"].argmax(-1), outs["cpu"].argmax(-1))
+
+    # bf16, fed the float32 run's greedy tokens, so that a flipped argmax
+    # does not change what the later steps see
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    feed = outs["card"].argmax(-1)
+    card16, launched = _serve_logits(cfg16, params, tokens, feed)
+    assert launched == (cfg.num_layers, cfg.num_layers, 0)
+    cpu16, launched = _serve_logits(cfg16, host, tokens, feed)
+    assert launched == (0, 0, 0)
+    gap_cpu = float((cpu16 - outs["cpu"]).abs().max())
+    gap_card = float((card16 - outs["card"]).abs().max())
+    assert torch.isfinite(card16).all() and 0 < gap_card <= 2 * gap_cpu

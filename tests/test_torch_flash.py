@@ -13,7 +13,7 @@ from repro.kernels.ops import flash_attention_op
 from repro.kernels.ref import flash_attention_ref
 from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
                                                  flash_attention_plain,
-                                                 visible)
+                                                 route, visible)
 from repro_torch.models.attention import _expand_kv, attend
 
 SHAPES = [(2, 128, 4, 2, 32, 0), (1, 256, 2, 2, 64, 0), (2, 256, 4, 1, 32, 64),
@@ -130,3 +130,25 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(q, k, v, window=-1)
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+@pytest.mark.parametrize("dtype,dh,want", [
+    (torch.bfloat16, 16, "tc"), (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 256, "tc"),
+    (torch.bfloat16, 8, "simt"), (torch.bfloat16, 100, "simt"),
+    (torch.float32, 16, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"), (torch.float32, 256, "simt"),
+    (torch.float32, 100, "simt")])
+def test_route_is_a_function_of_dtype_and_dh(dtype, dh, want):
+    """bf16 with dh a multiple of 16 takes the tensor-core kernel, all else
+    the float32 SIMT kernel: the choice reads nothing but dtype and dh."""
+    assert route(dtype, dh) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrapper_rejects_what_neither_route_takes(dtype):
+    with pytest.raises(ValueError, match="dh"):
+        route(dtype, 264)
+    q, k, v = _torch(*_qkv(1, 8, 2, 1, 264), dtype=dtype)
+    with pytest.raises(ValueError, match="dh"):
+        flash_attention(q, k, v)
