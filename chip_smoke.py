@@ -8,10 +8,17 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``. It
 builds the kernels of ``src/repro_torch/kernels/csrc``, then:
 
 1. holds each kernel against its plain PyTorch version on the card, on
-   inputs made from a numpy seed (slots and walks must be ``torch.equal``);
-   1b. ``sgns_fused`` against its plain version at nine shapes up to
-   B=65,536, K=40 and D=1,024 (``atol=rtol=3e-4``, masked rows exactly 0,
-   two launches on one input ``torch.equal``);
+   inputs made from a numpy seed (slots and walks must be ``torch.equal``):
+   ``node2vec_step``'s row entry and its first, padded-row design
+   (``node2vec_step_padded``) at nine shapes up to D=20,000, and both
+   entries (row and layout) at widths 1 to 20,000 with the live lengths of
+   v's and u's rows at block and level edges and rand near 1, the layout
+   entry also equal to the row entry on the unified rows;
+   1b. ``sgns_fused``'s row and table entries against their plain versions
+   at nine shapes up to B=65,536, K=40 and D=1,024 (``atol=rtol=3e-4``,
+   masked rows exactly 0, two launches on one input ``torch.equal``), the
+   table entry ``torch.equal`` to the old composition (torch gathers, the
+   row entry, torch divisions);
    1c. ``flash_attention`` against its plain version at the shapes of
    tests/test_flash_attention.py (GQA, MHA, MQA with window 64, ragged
    S=96, dh=128, bf16), S=1, a ragged dh=100, window 50 at dh=128 and
@@ -23,7 +30,11 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    layout: ``WalkEngine.build("wec:k=17,deg=100,seed=0", WalkPlan(
    backend="fused", cap=128, ...))``, two FN-Multi rounds in exact and in
    approx mode, every vertex a walker; walks must equal the reference
-   backend's and the kernel must launch once per superstep;
+   backend's, the kernel (its layout entry) must launch once per
+   superstep, and in exact mode no superstep may build full-width rows
+   (``unified_row`` runs once a round, for step 0's first-order draw). At
+   superstep 40 both entries, the padded-row design and the row assembly
+   the layout entry removes are timed;
    path C — streamed SGNS on path A's layout: ``StreamingSGNSTrainer(
    vocab=131_072, dim=128, window=10, negatives=5, batch_size=1024,
    sgns_backend="fused")`` ``.train()``s over 2 FN-Multi rounds of 1,024
@@ -34,8 +45,12 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    vocabulary: tests/test_torch_train.py::
    test_loss_curve_at_path_c_widths_matches_jax), and a concat replay of
    round 0 into a fresh trainer must equal the streamed run's tables after
-   round 0 exactly; then ~200 steps of a fresh trainer on each SGNS backend
-   (fused and the autograd one) give their steps per second;
+   round 0 exactly; then ~200 steps of a fresh trainer on the fused
+   backend, on the old composition (patched into ``core.skipgram``: its
+   tables must equal the fused trainer's) and on the autograd backend give
+   their steps per second; the table entry is timed device-only (a CUDA
+   graph of launches) and host-inclusive beside the old composition at
+   B=1,024 and B=65,536;
 3. main path B — the whole-walk ``node2vec_walk`` kernel on the FN-Base
    layout (``er:k=18,deg=100,seed=0``, ``pipeline=True``, one round); walks
    must equal the reference backend's, one launch;
@@ -89,6 +104,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+DEV = "cuda"
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
@@ -99,12 +115,15 @@ FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
 FLASH_SIMT_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 KERNEL_LIBS = ("node2vec_step", "sgns", "flash_attention",
                "flash_attention_sm90")
+A_SPEC = "wec:k=17,deg=100,seed=0"
+B_SPEC = "er:k=18,deg=100,seed=0"
 LENGTH = 80
 TOP = 8                         # kernels listed per profiled round
 SGNS_TOL = 3e-4                 # the JAX package's kernel tolerance
 SGNS_SHAPES = [(8, 1, 16), (64, 5, 32), (100, 8, 128), (512, 5, 200),
                (3, 12, 300), (256, 40, 64), (256, 5, 1024), (1024, 5, 128),
                (65536, 5, 128)]
+STEP_EDGE_WIDTHS = (1, 16, 17, 147, 256, 257, 913, 4100, 20000)
 C_EVERY = 128                   # path C walks every 128th vertex
 C_ROUNDS = 2
 C_PROFILE_WALKERS = 137         # ~200 optimizer steps at length 80
@@ -243,12 +262,122 @@ def walk_inputs(np, rng, n: int, d: int, w: int, steps: int, pad: int):
     return adj, wgt, deg.astype(np.int32), u0, v1, rand
 
 
+def edge_lives(d: int):
+    """Live lengths at the block (16) and level (256, 4096) edges of d."""
+    edges = {0, 1, 2, 15, 16, 17, 31, 32, 33, 255, 256, 257, 271, 272, 273,
+             511, 512, 513, 4095, 4096, 4097, d // 2, d - 1, d}
+    return sorted(x for x in edges if 0 <= x <= d)
+
+
+def edge_rand(np, rng, w: int):
+    """Uniforms with every third at 1 - 2^-24 and some at 0."""
+    r = rng.random(w).astype(np.float32)
+    r[::3] = np.float32(1 - 2.0 ** -24)
+    r[1::7] = 0.0
+    return r
+
+
+def edge_rows(np, rng, w: int, d: int, pad: int):
+    """[W, D] sorted rows whose live lengths cycle through the edges."""
+    live = np.resize(edge_lives(d), w)
+    rng.shuffle(live)
+    lane = np.arange(d)[None, :]
+    cand = np.sort(rng.integers(0, 1 << 20, (w, d)), axis=1) + np.arange(d)
+    return np.where(lane < live[:, None], cand, pad).astype(np.int32), live
+
+
+def edge_layout(np, torch, rng, d: int, cap: int, pad: int):
+    """A layout on the card of padded width hot_cap = d whose rows' live
+    lengths are the edges of d (each twice): cold up to cap, hot past it;
+    alias fields zero (the step reads none). Returns (layout, rows)."""
+    from repro_torch.core.graph import PaddedGraph
+    lives = edge_lives(d) * 2
+    n = max(2 * d + 2, 2 * len(lives))
+    deg = np.zeros(n, np.int32)
+    deg[:len(lives)] = lives
+    rows = [np.sort(rng.choice(n, k, replace=False)).astype(np.int32)
+            for k in deg[:len(lives)]]
+    adj = np.full((n, cap), pad, np.int32)
+    wgt = np.zeros((n, cap), np.float32)
+    hot = np.nonzero(deg > cap)[0]
+    hot_adj = np.full((max(len(hot), 1), d), pad, np.int32)
+    hot_wgt = np.zeros((max(len(hot), 1), d), np.float32)
+    hot_pos = np.full(n, -1, np.int32)
+    hot_pos[hot] = np.arange(len(hot))
+    for v, ids in enumerate(rows):
+        ws = (rng.random(len(ids)) + 0.1).astype(np.float32)
+        adj[v, :min(len(ids), cap)] = ids[:cap]
+        wgt[v, :min(len(ids), cap)] = ws[:cap]
+        if hot_pos[v] >= 0:
+            hot_adj[hot_pos[v], :len(ids)] = ids
+            hot_wgt[hot_pos[v], :len(ids)] = ws
+    hot_ids = hot.astype(np.int32) if len(hot) else np.full(1, pad, np.int32)
+    fields = dict(adj=adj, wgt=wgt, deg=deg, alias_p=np.zeros_like(wgt),
+                  alias_i=np.zeros_like(adj), w_min=np.ones(n, np.float32),
+                  w_max=np.ones(n, np.float32), hot_pos=hot_pos,
+                  hot_ids=hot_ids, hot_adj=hot_adj, hot_wgt=hot_wgt,
+                  hot_alias_p=np.zeros_like(hot_wgt),
+                  hot_alias_i=np.zeros_like(hot_adj))
+    return PaddedGraph.from_numpy(fields, n, torch.device(DEV)), rows
+
+
+def check_step_edges(np, torch, K, rng, d: int, pad: int) -> int:
+    """Both node2vec_step entries (and the padded-row design) at width d,
+    live lengths at block and level edges, rand near 1: each equals its
+    plain version and the layout entry the row entry on the unified rows.
+    Returns the largest |kernel - plain|."""
+    from repro_torch.core.walk import unified_row
+    dev = torch.device(DEV)
+    w = 3 * len(edge_lives(d))
+    cand, live = edge_rows(np, rng, w, d, pad)
+    cw = np.where(cand != pad, rng.random((w, d)) + 0.1,
+                  0.0).astype(np.float32)
+    pick = cand[np.arange(w)[:, None],
+                rng.integers(0, np.maximum(live, 1)[:, None], (w, d))]
+    other, _ = edge_rows(np, rng, w, d, pad)
+    prev = np.sort(np.where(rng.random((w, d)) < 0.5, pick, other),
+                   axis=1).astype(np.int32)
+    u = cand[np.arange(w), rng.integers(0, np.maximum(live, 1))]
+    args = [torch.from_numpy(a).to(dev) for a in (
+        cand, cw, u.astype(np.int32), prev, edge_rand(np, rng, w))]
+    want = K.node2vec_step_plain(*args, 0.5, 2.0)
+    err = 0
+    for fn in (K.node2vec_step, K.node2vec_step_padded):
+        got = fn(*args, 0.5, 2.0)
+        err = max(err, int_err(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"{fn.__name__} at the edges of D={d}: "
+                                 f"{int((got != want).sum())} slots differ")
+    pg, rows = edge_layout(np, torch, rng, d, min(d, 40), pad)
+    wk = 3 * len(rows)
+    v = np.resize(np.arange(len(rows)), wk)
+    u = rng.integers(0, len(rows), wk)
+    for i in range(0, wk, 3):                    # u in N(v): alpha = 1/p
+        if len(rows[v[i]]):
+            u[i] = rng.choice(rows[v[i]])
+    u, v, r = (torch.from_numpy(a).to(dev) for a in (
+        u.astype(np.int32), v.astype(np.int32), edge_rand(np, rng, wk)))
+    want = K.node2vec_step_layout_plain(pg, u, v, r, 0.5, 2.0)
+    cand, cw, _ = unified_row(pg, v, ("adj", "wgt"))
+    prev, _ = unified_row(pg, u, ("adj",))
+    rows_slot = K.node2vec_step(cand, cw, u, prev, r, 0.5, 2.0)
+    slot, nxt = K.node2vec_step_layout(pg, u, v, r, 0.5, 2.0)
+    err = max(err, int_err(slot, want[0]), int_err(nxt, want[1]),
+              int_err(rows_slot, slot))
+    if not (torch.equal(slot, want[0]) and torch.equal(nxt, want[1])
+            and torch.equal(rows_slot, slot)):
+        raise AssertionError(f"node2vec_step_layout at the edges of D={d} "
+                             f"differs from its plain version or the row "
+                             f"entry")
+    return err
+
+
 # --------------------------------------------------------------- phases --
 
 def check_kernels(np, torch, K, pad):
     """Phase 1: each kernel equals its plain version on the card. Returns
     the largest |kernel - plain| of each kernel (slots, vertex ids)."""
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     step_err = walk_err = 0
     rng = np.random.default_rng(0)
     cases = [(7, 1, 1), (7, 130, 300), (7, 793, 130), (4096, 1, 793),
@@ -258,15 +387,23 @@ def check_kernels(np, torch, K, pad):
         args = [torch.from_numpy(a).to(dev)
                 for a in step_inputs(np, rng, w, d, dp, pad)]
         for p, q in ((0.5, 2.0), (2.0, 0.5), (1.0, 1.0)):
-            got = K.node2vec_step(*args, p, q)
             want = K.node2vec_step_plain(*args, p, q)
-            torch.cuda.synchronize()
-            step_err = max(step_err, int_err(got, want))
-            if not torch.equal(got, want):
-                bad = int((got != want).sum())
-                raise AssertionError(f"node2vec_step W={w} D={d} DP={dp} "
-                                     f"p={p} q={q}: {bad} slots differ")
-    log(f"node2vec_step == plain on {len(cases)} shapes x 3 (p, q)")
+            for fn in (K.node2vec_step, K.node2vec_step_padded):
+                got = fn(*args, p, q)
+                torch.cuda.synchronize()
+                step_err = max(step_err, int_err(got, want))
+                if not torch.equal(got, want):
+                    bad = int((got != want).sum())
+                    raise AssertionError(f"{fn.__name__} W={w} D={d} "
+                                         f"DP={dp} p={p} q={q}: {bad} slots "
+                                         f"differ")
+    for d in STEP_EDGE_WIDTHS:
+        step_err = max(step_err, check_step_edges(np, torch, K, rng, d, pad))
+    log(f"node2vec_step (live-lane) and node2vec_step_padded == plain on "
+        f"{len(cases)} shapes x 3 (p, q); both entries at widths "
+        f"{STEP_EDGE_WIDTHS} with live lengths at block and level edges and "
+        f"rand near 1: row entry, padded entry and layout entry == plain, "
+        f"layout entry == row entry on the unified rows")
     for n, d, w, steps in [(64, 1, 7, 5), (4096, 130, 4096, 12),
                            (8192, 300, 65536, 6), (2048, 793, 7, 9),
                            (40000, 20000, 8, 3)]:
@@ -318,24 +455,86 @@ def sgns_compare(torch, S, args, label: str) -> float:
     return err
 
 
+def old_composition(torch, S):
+    """The fused backend's SGNS step before the table entry: the rows
+    gathered by torch, the row entry, every output divided by torch (the
+    yardstick of the table entry, which must give the same bits)."""
+    def run(emb_in, emb_out, center, pos, negs, valid, denom):
+        out = S.sgns_fused(emb_in[center.long()], emb_out[pos.long()],
+                           emb_out[negs.long()], valid)
+        return tuple(t / denom for t in out)
+    return run
+
+
+def sgns_tables_args(np, torch, rng, v: int, b: int, k: int, d: int):
+    """Random tables and a batch of int32 indices and a row mask on the
+    card, with the divisor as the trainer forms it."""
+    dev = torch.device(DEV)
+    emb_in, emb_out = (torch.from_numpy(rng.normal(size=(v, d)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    center, pos = (torch.from_numpy(rng.integers(0, v, b).astype(
+        np.int32)).to(dev) for _ in range(2))
+    negs = torch.from_numpy(rng.integers(0, v, (b, k)).astype(
+        np.int32)).to(dev)
+    valid = torch.from_numpy((rng.random(b) > 0.2).astype(np.float32)).to(dev)
+    return (emb_in, emb_out, center, pos, negs, valid,
+            torch.clamp(valid.sum(), min=1.0))
+
+
+def sgns_tables_compare(torch, S, args, label: str) -> float:
+    """The table entry twice, the old composition and the plain version
+    once: the launches ``torch.equal`` each other and the old composition,
+    within SGNS_TOL of the plain version, masked rows 0. Returns the
+    largest |kernel - plain|."""
+    got = S.sgns_fused_tables(*args)
+    again = S.sgns_fused_tables(*args)
+    old = old_composition(torch, S)(*args)
+    want = S.sgns_fused_tables_plain(*args)
+    torch.cuda.synchronize()
+    masked = args[5] == 0
+    err = 0.0
+    for name, g, a, o, w in zip(("loss", "g_ci", "g_po", "g_no"), got,
+                                again, old, want):
+        if not (torch.equal(g, a) and torch.equal(g, o)):
+            raise AssertionError(f"sgns_fused_tables {label}: {name} differs "
+                                 f"between launches or from the old "
+                                 f"composition")
+        err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
+        if not torch.allclose(g, w, atol=SGNS_TOL, rtol=SGNS_TOL):
+            raise AssertionError(f"sgns_fused_tables {label}: {name} differs "
+                                 f"from the plain version by "
+                                 f"{float((g - w).abs().max())}")
+        if name != "loss" and not bool((g[masked] == 0).all()):
+            raise AssertionError(f"sgns_fused_tables {label}: {name} is not "
+                                 f"0 on masked rows")
+    return err
+
+
 def check_sgns(np, torch, S) -> float:
-    """Phase 1b: ``sgns_fused`` against its plain version on the card."""
+    """Phase 1b: both ``sgns_fused`` entries against their plain versions
+    on the card, the table entry also against the old composition."""
     rng = np.random.default_rng(1)
     err = 0.0
     for b, k, d in SGNS_SHAPES:
-        args = [torch.from_numpy(a).cuda() for a in sgns_rows(np, rng, b, k,
+        args = [torch.from_numpy(a).to(DEV) for a in sgns_rows(np, rng, b, k,
                                                               d)]
         err = max(err, sgns_compare(torch, S, args, f"B={b} K={k} D={d}"))
-    log(f"sgns_fused == plain (atol=rtol={SGNS_TOL}, max |err| {err:.3g}), "
-        f"deterministic, masked rows 0, on {len(SGNS_SHAPES)} shapes")
+        targs = sgns_tables_args(np, torch, rng, max(2 * b, 64), b, k, d)
+        err = max(err, sgns_tables_compare(torch, S, targs,
+                                           f"B={b} K={k} D={d}"))
+    log(f"sgns_fused row and table entries == plain (atol=rtol={SGNS_TOL}, "
+        f"max |err| {err:.3g}), deterministic, masked rows 0, the table "
+        f"entry torch.equal to the old composition, on {len(SGNS_SHAPES)} "
+        f"shapes")
     return err
 
 
 def sgns_bound(b: int, k: int, d: int):
-    """Least time for the kernel's work: ci, po, no and valid read once,
-    the three grads and the loss written once; ~5KD + 4D float32
-    operations a row (dots, scales and the g_ci sum)."""
-    nbytes = 8 * b * d * (2 + k) + 4 * b + 4
+    """Least time for the table entry's work: the rows of ci, po and no and
+    their (2 + K) int32 indices, valid and denom read once, the three grads
+    and the loss written once; ~5KD + 4D float32 operations a row (dots,
+    scales and the g_ci sum)."""
+    nbytes = 8 * b * d * (2 + k) + 4 * b * (3 + k) + 8
     return bound_ms(nbytes, b * (5 * k * d + 4 * d))
 
 
@@ -436,45 +635,119 @@ def path_c(np, torch, pg, walkers_every: int = C_EVERY,
         log(f"C: concat replay of round 0 == streamed tables after round 0 "
             f"({time.perf_counter() - t0:.2f} s)")
     del replay
-    rates = {}
-    for backend in ("fused", "jnp"):
-        tr = StreamingSGNSTrainer(**{**kw, "sgns_backend": backend})
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tr.consume(kept[0][:C_PROFILE_WALKERS])
-        tr.loss_history()                       # waits for the last step
-        rates[backend] = tr.recorder.steps / (time.perf_counter() - t0)
+    from repro_torch.core import skipgram as SG
+    table_entry = SG.sgns_fused_tables
+    rates, tables = {}, {}
+    # the table entry and the old composition in turns (host speed drifts
+    # within a run), then autograd; each a fresh trainer on the same walkers
+    for name in ("fused", "old composition", "old composition", "fused",
+                 "jnp"):
+        tr = StreamingSGNSTrainer(**{**kw, "sgns_backend": (
+            "jnp" if name == "jnp" else "fused")})
+        if name == "old composition":
+            SG.sgns_fused_tables = old_composition(torch, S)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.consume(kept[0][:C_PROFILE_WALKERS])
+            tr.loss_history()                   # waits for the last step
+            rates.setdefault(name, []).append(
+                tr.recorder.steps / (time.perf_counter() - t0))
+        finally:
+            SG.sgns_fused_tables = table_entry
+        tables.setdefault(name, tr.params)
+        if not all(torch.equal(tables[name][k], tr.params[k])
+                   for k in ("emb_in", "emb_out")):
+            raise AssertionError(f"C: two fresh {name} trainers differ")
         del tr
-    log(f"C: the same {C_PROFILE_WALKERS} walkers of round 0 on a fresh "
-        f"trainer: fused {rates['fused']:.4g} steps/s, jnp "
-        f"{rates['jnp']:.4g} steps/s")
+    same = all(torch.equal(tables["fused"][k], tables["old composition"][k])
+               for k in ("emb_in", "emb_out"))
+    if not same:
+        raise AssertionError("C: the table entry's trainer differs from the "
+                             "old composition's")
+    each = {k: " / ".join(f"{x:.4g}" for x in v) for k, v in rates.items()}
+    rates = {k: sum(v) / len(v) for k, v in rates.items()}
+    log(f"C: the same {C_PROFILE_WALKERS} walkers of round 0 on fresh "
+        f"trainers, in the order fused, old, old, fused, jnp: fused "
+        f"{rates['fused']:.4g} steps/s ({each['fused']}), the old "
+        f"composition (gathers, row entry, divisions) "
+        f"{rates['old composition']:.4g} steps/s "
+        f"({each['old composition']}), its tables torch.equal the table "
+        f"entry's; jnp {rates['jnp']:.4g} steps/s")
+    del tables
     return trainer, kept, launches
 
 
-def time_sgns(np, torch, S, trainer, walks, b: int, label: str):
-    """Kernel and plain-version times at batch ``b`` on rows gathered from
-    the trained tables with pairs of ``walks``; returns (ms, plain_ms,
-    bound, max |kernel - plain|)."""
+def graph_ms(torch, fn, reps: int) -> float:
+    """Device-only milliseconds of ``fn``: ``reps`` calls captured in one
+    CUDA graph, replayed and timed with CUDA events, so no host time
+    between the launches counts."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(torch, graph.replay, 3) / reps
+    del graph
+    torch.cuda.synchronize()
+    return ms
+
+
+def time_sgns(np, torch, S, trainer, walks, b: int, label: str) -> dict:
+    """The table entry at batch ``b`` on the trained tables, with pairs of
+    ``walks``: host-inclusive (back-to-back wrapper calls) and device-only
+    times, the old composition's (gathers, row entry, divisions) in turns
+    with it, the row entry alone on gathered rows, the plain version, the
+    bound and the largest |kernel - plain|."""
     from repro_torch.train.pairs import device_pairs
-    w = torch.from_numpy(walks).cuda()
+    w = torch.from_numpy(walks).to(DEV)
     c, x, valid = device_pairs(w, 10)
     pick = torch.from_numpy(np.random.default_rng(b).choice(
-        c.numel(), b, replace=b > c.numel())).cuda()
+        c.numel(), b, replace=b > c.numel())).to(DEV)
     negs = torch.from_numpy(np.random.default_rng(b + 1).integers(
-        0, trainer.vocab, (b, 5))).cuda()
+        0, trainer.vocab, (b, 5)).astype(np.int32)).to(DEV)
     p = trainer.params
-    args = (p["emb_in"][c[pick].long()], p["emb_out"][x[pick].long()],
-            p["emb_out"][negs], valid[pick].float())
-    err = sgns_compare(torch, S, args, label)
+    v = valid[pick].float()
+    args = (p["emb_in"], p["emb_out"], c[pick], x[pick], negs, v,
+            torch.clamp(v.sum(), min=1.0))
+    r = {"err": sgns_tables_compare(torch, S, args, label)}
+    old = old_composition(torch, S)
     reps = 200 if b <= 4096 else 50
-    ms = cuda_ms(torch, lambda: S.sgns_fused(*args), reps, warmup=5)
-    plain = cuda_ms(torch, lambda: S.sgns_fused_plain(*args), reps // 4,
-                    warmup=2)
-    bound = sgns_bound(b, 5, 128)
-    log(f"sgns_fused {label} (B={b} K=5 D=128): {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
-        f"max |kernel - plain| {err:.3g}")
-    return ms, plain, bound, err
+    new_fn = lambda: S.sgns_fused_tables(*args)          # noqa: E731
+    old_fn = lambda: old(*args)                          # noqa: E731
+    t = [cuda_ms(torch, fn, reps, warmup=5)
+         for fn in (new_fn, old_fn, old_fn, new_fn)]
+    r["ms_host"], r["ms_old"] = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    greps = 100 if b <= 4096 else 10
+    t = [graph_ms(torch, fn, greps) for fn in (new_fn, old_fn, old_fn,
+                                                 new_fn)]
+    r["ms_device"], r["ms_old_device"] = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    rows = (p["emb_in"][c[pick].long()], p["emb_out"][x[pick].long()],
+            p["emb_out"][negs.long()], v)
+    r["ms_rows_entry"] = cuda_ms(torch, lambda: S.sgns_fused(*rows), reps,
+                                 warmup=5)
+    r["ms_rows_entry_device"] = graph_ms(torch, lambda: S.sgns_fused(*rows),
+                                         greps)
+    r["plain_ms"] = cuda_ms(torch, lambda: S.sgns_fused_tables_plain(*args),
+                            reps // 4, warmup=2)
+    r["bound"] = sgns_bound(b, 5, 128)
+    log(f"sgns_fused_tables {label} (B={b} K=5 D=128): device-only "
+        f"{r['ms_device']:.4f} ms (a CUDA graph of {greps}), host-inclusive "
+        f"{r['ms_host']:.4f} ms; the old composition (gathers, row entry, "
+        f"divisions) {r['ms_old_device']:.4f} ms device-only, "
+        f"{r['ms_old']:.4f} ms host-inclusive; the row entry alone on "
+        f"gathered rows {r['ms_rows_entry_device']:.4f} ms device-only, "
+        f"{r['ms_rows_entry']:.4f} ms host-inclusive; plain "
+        f"{r['plain_ms']:.4f} ms; bound {r['bound'][0]:.4f} ms "
+        f"({r['bound'][1]}); max |kernel - plain| {r['err']:.3g}, == old "
+        f"composition")
+    return r
 
 
 def path_d(np, torch, device=None):
@@ -834,6 +1107,22 @@ def _to_cpu(tree):
             for k, v in tree.items()}
 
 
+def count_calls(module, name: str):
+    """Wrap ``module.name`` in a counter; the returned function puts the
+    original back and returns the count."""
+    orig, calls = getattr(module, name), [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return orig(*args, **kwargs)
+    setattr(module, name, counted)
+
+    def done() -> int:
+        setattr(module, name, orig)
+        return calls[0]
+    return done
+
+
 def drive(torch, engine, rounds: int):
     """Run ``rounds`` FN-Multi rounds; returns (walks list, seconds)."""
     torch.cuda.synchronize()
@@ -862,6 +1151,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import node2vec_step as K
     from repro_torch.kernels import sgns as S
+    from repro_torch.core import walk as WALK
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -886,23 +1176,34 @@ def main() -> int:
     flash_err = check_flash(np, torch, FA)
 
     # ---- main path A: per-step kernel, FN-Cache ------------------------
-    spec_a = "wec:k=17,deg=100,seed=0"
+    spec_a = A_SPEC
     t0 = time.perf_counter()
     first = WalkEngine.build(spec_a, WalkPlan(
-        p=1.0, q=0.5, length=LENGTH, cap=128, backend="fused"))
+        p=1.0, q=0.5, length=LENGTH, cap=128, backend="fused"), device=DEV)
     pg_a = first.pg
     log(f"A: {spec_a}: n={pg_a.n} m={first.store.graph.m} "
         f"max_deg={pg_a.hot_cap} hot={pg_a.num_hot} layout built in "
         f"{time.perf_counter() - t0:.2f} s host")
-    step_launches = {}
+    step_launches, rows_built = {}, {}
     for mode in ("exact", "approx"):
         kw = dict(p=1.0, q=0.5, length=LENGTH, cap=128, mode=mode)
         fused = WalkEngine.build(pg_a, WalkPlan(backend="fused", **kw))
         ref = WalkEngine.build(pg_a, WalkPlan(backend="reference", **kw))
         K.node2vec_step.launches = 0
         K.node2vec_walk.launches = 0
-        walks, secs = drive(torch, fused, 2)
+        built = count_calls(WALK, "unified_row")
+        try:
+            walks, secs = drive(torch, fused, 2)
+        finally:
+            built = built()
         step_launches[mode] = K.node2vec_step.launches
+        rows_built[mode] = built
+        # step 0's first-order draw builds the start rows once a run; exact
+        # supersteps read the layout in place
+        if mode == "exact" and built != 2:
+            raise AssertionError(f"A/exact: the fused run built full-width "
+                                 f"rows {built} times, want 2 (step 0 of "
+                                 f"each round)")
         if mode == "exact":
             lm_walks = walks[0]               # path E's prompts
         if (K.node2vec_step.launches, K.node2vec_walk.launches) != \
@@ -924,64 +1225,91 @@ def main() -> int:
         log(f"A/{mode}: fused {steps / secs:.4g} walker-steps/s "
             f"({secs:.3f} s), reference {steps / ref_secs:.4g} "
             f"walker-steps/s; == reference; node2vec_step launches "
-            f"{step_launches[mode]}")
+            f"{step_launches[mode]}; unified_row calls {rows_built[mode]}")
         profile_round(torch, lambda: fused.run(seed=1), f"A/{mode} fused")
 
     # superstep s of path A's round 0 (seed 0), for timing the step kernel:
     # walks[:, k] is the vertex after step k, so u = walks[:, s - 2] and
     # v = walks[:, s - 1]
-    starts = torch.arange(pg_a.n, dtype=torch.int32, device="cuda")
-    walk_a = torch.from_numpy(ref_walks[0]).cuda()
+    starts = torch.arange(pg_a.n, dtype=torch.int32, device=DEV)
+    walk_a = torch.from_numpy(ref_walks[0]).to(DEV)
     s = LENGTH // 2
     u_s = walk_a[:, s - 2].contiguous()
     v_s = walk_a[:, s - 1].contiguous()
-    cand, cw, _ = unified_row(pg_a, v_s, ("adj", "wgt"))
-    prev, _ = unified_row(pg_a, u_s, ("adj",))
-    rand = step_uniforms(jr.PRNGKey(0, device="cuda"), starts.long(),
+    rand = step_uniforms(jr.PRNGKey(0, device=DEV), starts.long(),
                          s + 1)[:, s - 1].contiguous()
+
+    def rows():
+        return (unified_row(pg_a, v_s, ("adj", "wgt")),
+                unified_row(pg_a, u_s, ("adj",)))
+    (cand, cw, _), (prev, _) = rows()
     step_args = (cand, cw, u_s, prev, rand, 1.0, 0.5)
-    got = K.node2vec_step(*step_args)
-    want = K.node2vec_step_plain(*step_args)
-    step_err = max(step_err, int_err(got, want))
-    if not torch.equal(got, want):
-        raise AssertionError("node2vec_step differs on path A's inputs")
-    step_ms = cuda_ms(torch, lambda: K.node2vec_step(*step_args), 20)
-    step_plain_ms = cuda_ms(torch, lambda: K.node2vec_step_plain(
-        *step_args), 5)
+    layout_args = (pg_a, u_s, v_s, rand, 1.0, 0.5)
+    slot, nxt = K.node2vec_step_layout(*layout_args)
+    want, want_nxt = K.node2vec_step_layout_plain(*layout_args)
+    for got in (slot, K.node2vec_step(*step_args),
+                K.node2vec_step_padded(*step_args)):
+        step_err = max(step_err, int_err(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError("node2vec_step differs on path A's inputs")
+    step_err = max(step_err, int_err(nxt, want_nxt))
+    if not torch.equal(nxt, want_nxt):
+        raise AssertionError("node2vec_step_layout's next vertices differ on "
+                             "path A's inputs")
+    new_fn = lambda: K.node2vec_step_layout(*layout_args)    # noqa: E731
+    old_fn = lambda: K.node2vec_step_padded(*step_args)      # noqa: E731
+    t = [cuda_ms(torch, fn, 20) for fn in (new_fn, old_fn, old_fn, new_fn)]
+    step = {"ms_layout": (t[0] + t[3]) / 2, "ms_old": (t[1] + t[2]) / 2,
+            "ms_rows_entry": cuda_ms(torch, lambda: K.node2vec_step(
+                *step_args), 20),
+            "rows_ms": cuda_ms(torch, rows, 10),
+            "plain_ms": cuda_ms(torch, lambda: K.node2vec_step_layout_plain(
+                *layout_args), 5),
+            "plain_rows_ms": cuda_ms(torch, lambda: K.node2vec_step_plain(
+                *step_args), 5)}
     wk, d = cand.shape
     dp = prev.shape[1]
-    # what the draws need: v's ids up to and including the PAD edge, its
-    # live weights, u's live prev ids, and u, r and the slot of each walker
+    # what the layout entry needs: v's live ids and weights, u's live ids,
+    # u, v, r, hot_pos and deg of u and v in, slot and next vertex out; the
+    # row entry reads v's ids up to and including the PAD edge and writes
+    # only the slot
     live_v = (cand != PAD_ID).sum(1)
     live_u = (prev != PAD_ID).sum(1)
-    step_bound = bound_ms(
+    step_bound = bound_ms(int((8 * live_v + 4 * live_u).sum()) + 36 * wk,
+                          3 * int(live_v.sum()))
+    rows_bound = bound_ms(
         int((4 * live_v.add(1).clamp(max=d) + 4 * live_v + 4 * live_u).sum())
         + 12 * wk, 3 * int(live_v.sum()))
     padded_ms = wk * (4 * d + 4 * d + 4 * dp + 12) / HBM_BYTES_PER_S * 1e3
     log(f"node2vec_step W={wk} D={d} DP={dp} (mean live lanes "
         f"{float(live_v.double().mean()):.2f} of v, "
-        f"{float(live_u.double().mean()):.2f} of u): {step_ms:.4f} ms, plain "
-        f"{step_plain_ms:.4f} ms, bound {step_bound[0]:.4f} ms "
-        f"({step_bound[1]}; {padded_ms:.4f} ms over the padded rows)")
+        f"{float(live_u.double().mean()):.2f} of u): layout entry "
+        f"{step['ms_layout']:.4f} ms, bound {step_bound[0]:.4f} ms "
+        f"({step_bound[1]}); row entry on the unified rows "
+        f"{step['ms_rows_entry']:.4f} ms (bound {rows_bound[0]:.4f} ms) + "
+        f"the rows' assembly (unified_row of v and u) {step['rows_ms']:.4f} "
+        f"ms; the padded-row design {step['ms_old']:.4f} ms "
+        f"({padded_ms:.4f} ms over the padded rows); plain layout "
+        f"{step['plain_ms']:.4f} ms, plain rows {step['plain_rows_ms']:.4f} "
+        f"ms")
     del first, fused, ref, walks, ref_walks, cand, cw, prev
 
     # ---- main path C: streamed SGNS with the fused kernel --------------
     trainer, c_walks, sgns_launches = path_c(np, torch, pg_a)
-    sgns_ms, sgns_plain_ms, sgns_bnd, err = time_sgns(
-        np, torch, S, trainer, c_walks[0], 1024, "main path")
-    sgns_err = max(sgns_err, err)
-    bw_ms, bw_plain_ms, bw_bnd, err = time_sgns(
-        np, torch, S, trainer, c_walks[0], 65536, "bandwidth reading")
-    sgns_err = max(sgns_err, err)
+    sg = time_sgns(np, torch, S, trainer, c_walks[0], 1024, "main path")
+    bw = time_sgns(np, torch, S, trainer, c_walks[0], 65536,
+                   "bandwidth reading")
+    sgns_err = max(sgns_err, sg["err"], bw["err"])
     profile_round(torch, lambda: trainer.consume(
         c_walks[0][:C_PROFILE_WALKERS]), "C fused SGNS", "~200 steps")
     del trainer, c_walks, pg_a
 
     # ---- main path B: whole-walk kernel, FN-Base -----------------------
-    spec_b = "er:k=18,deg=100,seed=0"
+    spec_b = B_SPEC
     kw = dict(p=1.0, q=0.5, length=LENGTH, pipeline=True)
     t0 = time.perf_counter()
-    fused = WalkEngine.build(spec_b, WalkPlan(backend="fused", **kw))
+    fused = WalkEngine.build(spec_b, WalkPlan(backend="fused", **kw),
+                             device=DEV)
     pg_b = fused.pg
     mbytes = sum(getattr(pg_b, f).numel() * getattr(pg_b, f).element_size()
                  for f in ("adj", "wgt", "deg", "alias_p", "alias_i"))
@@ -1009,9 +1337,9 @@ def main() -> int:
         f"node2vec_walk launches {walk_launches}")
     profile_round(torch, lambda: fused.run(seed=1), "B fused+pipeline")
 
-    starts = torch.arange(pg_b.n, dtype=torch.int32, device="cuda")
-    v1 = torch.from_numpy(walks[0][:, 0].copy()).cuda()
-    rand = step_uniforms(jr.PRNGKey(0, device="cuda"), starts.long(),
+    starts = torch.arange(pg_b.n, dtype=torch.int32, device=DEV)
+    v1 = torch.from_numpy(walks[0][:, 0].copy()).to(DEV)
+    rand = step_uniforms(jr.PRNGKey(0, device=DEV), starts.long(),
                          LENGTH)
     walk_args = (pg_b.adj, pg_b.wgt, pg_b.deg, starts, v1, rand, 1.0, 0.5)
     tail = K.node2vec_walk(*walk_args)
@@ -1030,7 +1358,7 @@ def main() -> int:
     # and including the PAD edge and its live weights (v = walks[:, s]),
     # one uniform in and one vertex out; u0 and v1 in per walker
     deg_v = pg_b.deg[torch.from_numpy(
-        np.ascontiguousarray(walks[0][:, :st])).cuda().long()].long()
+        np.ascontiguousarray(walks[0][:, :st])).to(DEV).long()].long()
     walk_bound = bound_ms(
         int((4 * deg_v.add(1).clamp(max=d) + 4 * deg_v).sum())
         + 8 * deg_v.numel() + 4 * int(pg_b.deg[starts.long()].long().sum())
@@ -1066,8 +1394,14 @@ def main() -> int:
         {"name": "node2vec_step", "route": "cuda", "source": CU_SOURCE,
          "replaces": "src/repro/kernels/node2vec_step.py:92",
          "launches": step_launches["exact"], "max_abs_err": step_err,
-         "ms": step_ms, "plain_ms": step_plain_ms, "bound_ms": step_bound[0],
-         "bound_by": step_bound[1], "library_ms": None},
+         "ms": step["ms_layout"], "plain_ms": step["plain_ms"],
+         "bound_ms": step_bound[0], "bound_by": step_bound[1],
+         "library_ms": None, "ms_layout": step["ms_layout"],
+         "rows_ms": step["rows_ms"], "ms_rows_entry": step["ms_rows_entry"],
+         "bound_ms_rows_entry": rows_bound[0],
+         "plain_rows_ms": step["plain_rows_ms"], "ms_old": step["ms_old"],
+         "launches_approx": step_launches["approx"],
+         "unified_row_calls": rows_built},
         {"name": "node2vec_walk", "route": "cuda", "source": CU_SOURCE,
          "replaces": "src/repro/kernels/node2vec_step.py:192",
          "launches": walk_launches, "max_abs_err": walk_err,
@@ -1076,10 +1410,19 @@ def main() -> int:
         {"name": "sgns_fused", "route": "cuda", "source": SGNS_SOURCE,
          "replaces": "src/repro/kernels/sgns.py:76",
          "launches": sgns_launches, "max_abs_err": sgns_err,
-         "ms": sgns_ms, "plain_ms": sgns_plain_ms, "bound_ms": sgns_bnd[0],
-         "bound_by": sgns_bnd[1], "library_ms": None,
-         "ms_bw": bw_ms, "plain_ms_bw": bw_plain_ms, "bound_ms_bw": bw_bnd[0],
-         "bound_by_bw": bw_bnd[1]},
+         "ms": sg["ms_host"], "plain_ms": sg["plain_ms"],
+         "bound_ms": sg["bound"][0], "bound_by": sg["bound"][1],
+         "library_ms": None, "ms_host": sg["ms_host"],
+         "ms_device": sg["ms_device"], "ms_old": sg["ms_old"],
+         "ms_old_device": sg["ms_old_device"],
+         "ms_rows_entry": sg["ms_rows_entry"],
+         "ms_rows_entry_device": sg["ms_rows_entry_device"],
+         "ms_bw": bw["ms_host"], "ms_device_bw": bw["ms_device"],
+         "ms_old_bw": bw["ms_old"], "ms_old_device_bw": bw["ms_old_device"],
+         "ms_rows_entry_bw": bw["ms_rows_entry"],
+         "ms_rows_entry_device_bw": bw["ms_rows_entry_device"],
+         "plain_ms_bw": bw["plain_ms"], "bound_ms_bw": bw["bound"][0],
+         "bound_by_bw": bw["bound"][1]},
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
          "replaces": "src/repro/kernels/flash_attention.py:93",
          "launches": flash_launches, "launches_tc": fl["launches_tc"],

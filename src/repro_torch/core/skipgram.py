@@ -8,9 +8,11 @@ Parameters are a dict of two ``[V, D]`` tables, ``emb_in`` and
 
 * ``"jnp"`` (the name is kept) — autograd through :func:`sgns_loss`, the
   reference;
-* ``"fused"`` — gather the rows, run the fused kernel
-  (``repro_torch.kernels.sgns``: on the card the CUDA kernel, on the CPU
-  its plain version) and scatter-add the row grads back into the tables.
+* ``"fused"`` — the fused kernel's table entry
+  (``repro_torch.kernels.sgns.sgns_fused_tables``: on the card the CUDA
+  kernel, which reads the rows in place, on the CPU its plain version)
+  gives the row grads already divided by the batch's divisor; they are
+  scatter-added into the tables.
 
 On the card both backends scatter with deterministic algorithms (sorted
 indices, no float atomics), so a run repeats bit for bit; the setting is
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
-from repro_torch.kernels.sgns import sgns_fused
+from repro_torch.kernels.sgns import sgns_fused_tables
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 
 SGNS_BACKENDS = ("jnp", "fused")
@@ -114,22 +116,24 @@ def sgns_grads(params, batch, backend: str = "jnp"):
             f"sgns backend must be one of {SGNS_BACKENDS}, got {backend!r}")
     v = torch.ones(center.shape[0], dtype=torch.float32, device=dev) \
         if valid is None else valid.to(torch.float32)
-    ci = params["emb_in"][center]
-    po = params["emb_out"][pos]
-    no = params["emb_out"][negs]
-    loss_sum, g_ci, g_po, g_no = sgns_fused(ci, po, no, v)
-    # the kernel returns the masked *sum*; the jnp path trains on the masked
-    # mean, so both backends see one gradient
+    # the kernel reads the rows in place and returns the masked *sum* over
+    # denom: the jnp path trains on the masked mean, so both backends see
+    # one gradient
     denom = torch.clamp(v.sum(), min=1.0)
+    loss, g_ci, g_po, g_no = sgns_fused_tables(
+        params["emb_in"], params["emb_out"], _int32(batch["center"]),
+        _int32(batch["pos"]), _int32(batch["neg"]), v, denom)
     d = g_ci.shape[1]
     with _deterministic(dev):
-        g_in = torch.zeros_like(params["emb_in"]).index_add_(
-            0, center, g_ci / denom)
+        g_in = torch.zeros_like(params["emb_in"]).index_add_(0, center, g_ci)
         g_out = (torch.zeros_like(params["emb_out"])
-                 .index_add_(0, pos, g_po / denom)
-                 .index_add_(0, negs.reshape(-1),
-                             (g_no / denom).reshape(-1, d)))
-    return loss_sum / denom, {"emb_in": g_in, "emb_out": g_out}
+                 .index_add_(0, pos, g_po)
+                 .index_add_(0, negs.reshape(-1), g_no.reshape(-1, d)))
+    return loss, {"emb_in": g_in, "emb_out": g_out}
+
+
+def _int32(idx: torch.Tensor) -> torch.Tensor:
+    return idx.to(torch.int32).contiguous()
 
 
 def train_step(params, opt_state, batch, opt: Optimizer,

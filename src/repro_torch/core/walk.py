@@ -3,7 +3,8 @@
 
 * ``"reference"`` — all sampling in plain PyTorch;
 * ``"fused"``     — the exact second-order draw runs in the
-  ``node2vec_step`` CUDA kernel, and with ``WalkPlan.pipeline`` (exact mode,
+  ``node2vec_step`` CUDA kernel, which reads v's and u's rows in place
+  from the layout, and with ``WalkPlan.pipeline`` (exact mode,
   FN-Base layout) the whole walk runs in the ``node2vec_walk`` kernel.
 
 The walk is vectorised over walkers; a Python loop over supersteps takes
@@ -18,7 +19,8 @@ import torch.nn.functional as F
 
 from repro_torch import random as jr
 from repro_torch.core.graph import PAD_ID, PaddedGraph
-from repro_torch.engine.sampler import HotContext, Sampler, first_order_slots
+from repro_torch.engine.sampler import (HotContext, Sampler, first_order_slots,
+                                        split_keys)
 
 _FILL = {"adj": PAD_ID, "wgt": 0.0, "alias_p": 0.0, "alias_i": 0}
 
@@ -65,32 +67,64 @@ def _first_step(pg: PaddedGraph, starts: torch.Tensor,
     return v1, ids0
 
 
+def _fused_step(pg: PaddedGraph, sampler: Sampler, keys: torch.Tensor,
+                u: torch.Tensor, v: torch.Tensor, ids, hot) -> torch.Tensor:
+    """One superstep of the fused backend: the exact draw and its next
+    vertex from the ``node2vec_step`` kernel's layout entry (v's and u's
+    rows read in place), then, in the approx modes, the alias draw on v's
+    full-width ids where the O(1) path is taken."""
+    from repro_torch.kernels.node2vec_step import node2vec_step_layout
+    k_exact, k_approx = split_keys(keys)
+    slot, nxt = node2vec_step_layout(pg, u, v, jr.uniform(k_exact),
+                                     sampler.p, sampler.q)
+    choice = sampler.with_alias(slot, k_approx, hot)
+    if choice.use_alias is None:
+        return nxt
+    alias_nxt = torch.where(pg.deg[v] > 0, _gather(ids, choice.slot_alias),
+                            v)
+    return torch.where(choice.use_alias, alias_nxt, nxt)
+
+
 def run_reference(pg: PaddedGraph, starts: torch.Tensor,
                   walker_ids: torch.Tensor, seed_key: torch.Tensor,
                   sampler: Sampler, length: int) -> torch.Tensor:
     """Walk ``starts`` [W] int32 for ``length`` steps -> [W, length] int32
-    (column 0 is the first sampled step)."""
+    (column 0 is the first sampled step).
+
+    With ``sampler.fused`` the exact draw reads the layout in place, so
+    exact mode builds no ``[W, hot_cap]`` rows and the approx modes build
+    only the ids and alias rows of the O(1) path; otherwise every step
+    builds v's full-width rows and draws on them."""
     wkeys = jr.fold_in(seed_key, walker_ids)
     v1, prev = _first_step(pg, starts, wkeys)
     cols = [v1]
     u, v = starts, v1
     approx = sampler.mode != "exact"
-    fields = ("adj", "wgt", "alias_p", "alias_i") if approx else \
-        ("adj", "wgt")
+    if sampler.fused:
+        fields = ("adj", "alias_p", "alias_i") if approx else ()
+    else:
+        fields = ("adj", "wgt", "alias_p", "alias_i") if approx else \
+            ("adj", "wgt")
     for s in range(1, length):
         keys = jr.fold_in(wkeys, s)
-        rows = unified_row(pg, v, fields)
-        ids, w, is_hot = rows[0], rows[1], rows[-1]
+        rows = dict(zip(fields + ("is_hot",), unified_row(pg, v, fields))) \
+            if fields else {}
         hot = None
         if approx:
             hot = HotContext(
-                is_hot_v=is_hot, is_hot_u=pg.hot_pos[u] >= 0,
+                is_hot_v=rows["is_hot"], is_hot_u=pg.hot_pos[u] >= 0,
                 deg_u=pg.deg[u], deg_v=pg.deg[v],
                 w_min_v=pg.w_min[v], w_max_v=pg.w_max[v],
-                alias_p=rows[2], alias_i=rows[3], alias_deg=pg.deg[v])
-        choice = sampler.choose(keys, ids, w, u, prev, hot)
-        nxt = torch.where(pg.deg[v] > 0, _gather(ids, choice.slot()), v)
-        u, v, prev = v, nxt, ids
+                alias_p=rows["alias_p"], alias_i=rows["alias_i"],
+                alias_deg=pg.deg[v])
+        if sampler.fused:
+            nxt = _fused_step(pg, sampler, keys, u, v, rows.get("adj"), hot)
+        else:
+            ids = rows["adj"]
+            choice = sampler.choose(keys, ids, rows["wgt"], u, prev, hot)
+            nxt = torch.where(pg.deg[v] > 0, _gather(ids, choice.slot()), v)
+            prev = ids
+        u, v = v, nxt
         cols.append(nxt)
     return torch.stack(cols, dim=1)
 

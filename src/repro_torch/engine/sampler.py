@@ -149,6 +149,12 @@ class Sampler:
         k_exact, k_approx = split_keys(keys)
         rand = jr.uniform(k_exact)
         slot_exact = self.exact(rand, cand_ids, cand_w, u, prev_rows)
+        return self.with_alias(slot_exact, k_approx, hot)
+
+    def with_alias(self, slot_exact, k_approx,
+                   hot: Optional[HotContext] = None) -> StepChoice:
+        """The step's choice given its exact slot: in the approx modes, the
+        O(1) alias draw under ``k_approx`` and where it is taken."""
         if self.mode == "exact" or hot is None:
             return StepChoice(slot_exact)
         slot_alias = first_order_slots(k_approx, hot.alias_p, hot.alias_i,

@@ -11,12 +11,15 @@ does, is skipped)::
         tests/test_torch_cuda.py
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.graph import PAD_ID
+from repro_torch.core.walk import unified_row
 from repro_torch.engine import WalkEngine, WalkPlan
 from repro_torch import random as jr
 from repro_torch.configs import smoke_config
@@ -25,10 +28,25 @@ from repro_torch.kernels import node2vec_step as K
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain, route)
 from repro_torch.models import model as M
-from repro_torch.kernels.sgns import sgns_fused, sgns_fused_plain
+from repro_torch.kernels.sgns import (sgns_fused, sgns_fused_plain,
+                                      sgns_fused_tables,
+                                      sgns_fused_tables_plain)
 from repro_torch.train.stream import train_streamed
 
 pytestmark = pytest.mark.cuda
+
+
+def _load_smoke():
+    """chip_smoke.py, whose edge-case inputs of the step kernel these tests
+    share (it imports only the standard library at module level)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SMOKE = _load_smoke()
 
 
 @pytest.fixture
@@ -68,6 +86,64 @@ def test_step_kernel_matches_plain(cuda, w, d, dp):
     got = K.node2vec_step(*args, 0.5, 2.0)
     assert K.node2vec_step.launches == before + 1
     assert torch.equal(got, K.node2vec_step_plain(*args, 0.5, 2.0))
+
+
+EDGE_WIDTHS = list(SMOKE.STEP_EDGE_WIDTHS)
+
+
+@pytest.mark.parametrize("d", EDGE_WIDTHS)
+def test_step_row_entry_matches_plain_at_edges(cuda, d):
+    """The live-lane kernel (and the padded-row one it replaces) equal the
+    plain version at every width, with v's and u's live lengths at block
+    and level edges and rand near 1; 20,000 puts the level buffer in
+    global scratch and searches u's row in place."""
+    rng = np.random.default_rng(d)
+    w = 3 * len(SMOKE.edge_lives(d))
+    cand, live = SMOKE.edge_rows(np, rng, w, d, PAD_ID)
+    cw = np.where(cand != PAD_ID, rng.random((w, d)) + 0.1,
+                  0.0).astype(np.float32)
+    pick = cand[np.arange(w)[:, None],
+                rng.integers(0, np.maximum(live, 1)[:, None], (w, d))]
+    other, _ = SMOKE.edge_rows(np, rng, w, d, PAD_ID)
+    prev = np.sort(np.where(rng.random((w, d)) < 0.5, pick, other),
+                   axis=1).astype(np.int32)
+    u = cand[np.arange(w), rng.integers(0, np.maximum(live, 1))]
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        cand, cw, u.astype(np.int32), prev, SMOKE.edge_rand(np, rng, w))]
+    before = K.node2vec_step.launches
+    got = K.node2vec_step(*args, 0.5, 2.0)
+    assert K.node2vec_step.launches == before + 1
+    want = K.node2vec_step_plain(*args, 0.5, 2.0)
+    assert torch.equal(got, want)
+    assert torch.equal(K.node2vec_step_padded(*args, 0.5, 2.0), want)
+
+
+@pytest.mark.parametrize("d", EDGE_WIDTHS)
+def test_step_layout_entry_matches_plain_and_row_entry(cuda, d):
+    """The layout entry reads v's and u's rows in place: its slots and
+    next vertices equal the plain version's (unified_row, exact_slots,
+    the gather), and its slots the row entry's on the unified rows; the
+    live lengths sit at block and level edges, dead ends included."""
+    rng = np.random.default_rng(d + 1)
+    pg, rows = SMOKE.edge_layout(np, torch, rng, d, min(d, 40), PAD_ID)
+    assert pg.hot_cap == d
+    wk = 3 * len(rows)
+    v = np.resize(np.arange(len(rows)), wk)
+    u = rng.integers(0, len(rows), wk)
+    for i in range(0, wk, 3):                    # u in N(v): alpha = 1/p
+        if len(rows[v[i]]):
+            u[i] = rng.choice(rows[v[i]])
+    r = SMOKE.edge_rand(np, rng, wk)
+    u, v, r = (torch.from_numpy(a).to(cuda) for a in (
+        u.astype(np.int32), v.astype(np.int32), r))
+    before = K.node2vec_step.launches
+    slot, nxt = K.node2vec_step_layout(pg, u, v, r, 0.5, 2.0)
+    assert K.node2vec_step.launches == before + 1
+    want = K.node2vec_step_layout_plain(pg, u, v, r, 0.5, 2.0)
+    assert torch.equal(slot, want[0]) and torch.equal(nxt, want[1])
+    cand, cw, _ = unified_row(pg, v, ("adj", "wgt"))
+    prev, _ = unified_row(pg, u, ("adj",))
+    assert torch.equal(K.node2vec_step(cand, cw, u, prev, r, 0.5, 2.0), slot)
 
 
 @pytest.mark.parametrize("n,d,w,steps", [(64, 1, 7, 5), (2048, 147, 4096, 9),
@@ -127,6 +203,67 @@ def test_sgns_kernel_matches_plain(cuda, b, k, d):
         torch.testing.assert_close(g, w, atol=3e-4, rtol=3e-4)
     for g in got[1:]:
         assert bool((g[masked] == 0).all())
+
+
+@pytest.mark.parametrize("v,b,k,d", [(300, 8, 1, 16), (5000, 1024, 5, 128),
+                                     (100, 3, 12, 300), (700, 256, 40, 64),
+                                     (300, 256, 5, 1024)])
+def test_sgns_tables_entry_equals_old_composition(cuda, v, b, k, d):
+    """The table entry reads the rows in place and divides in the kernel:
+    the same bits as the gathers, the row entry and the divisions; within
+    3e-4 of its plain version, zero grads on masked rows, and the same
+    bits again on a second launch."""
+    rng = np.random.default_rng(v + b + k + d)
+    emb_in, emb_out = (torch.from_numpy(rng.normal(size=(v, d)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    center, pos = (torch.from_numpy(rng.integers(0, v, b).astype(
+        np.int32)).to(cuda) for _ in range(2))
+    negs = torch.from_numpy(rng.integers(0, v, (b, k)).astype(
+        np.int32)).to(cuda)
+    valid = torch.from_numpy((rng.random(b) > 0.2).astype(
+        np.float32)).to(cuda)
+    denom = torch.clamp(valid.sum(), min=1.0)
+    args = (emb_in, emb_out, center, pos, negs, valid, denom)
+    before = sgns_fused.launches
+    got = sgns_fused_tables(*args)
+    again = sgns_fused_tables(*args)
+    old = sgns_fused(emb_in[center.long()], emb_out[pos.long()],
+                     emb_out[negs.long()], valid)
+    assert sgns_fused.launches == before + 3
+    masked = valid == 0
+    for g, a, o, w in zip(got, again, old, sgns_fused_tables_plain(*args)):
+        assert torch.equal(g, a) and torch.equal(g, o / denom)
+        torch.testing.assert_close(g, w, atol=3e-4, rtol=3e-4)
+    for g in got[1:]:
+        assert bool((g[masked] == 0).all())
+    # a kept loss (a trainer's history) must not keep the grads alive
+    assert got[0].untyped_storage().nbytes() == 4
+
+
+def test_sgns_tables_entry_on_two_streams(cuda):
+    """Launches on two streams at once each have their own completion
+    counter: both give the single-stream bits."""
+    rng = np.random.default_rng(5)
+    v, b, k, d = 5000, 1024, 5, 128
+    emb_in, emb_out = (torch.from_numpy(rng.normal(size=(v, d)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    idx = [torch.from_numpy(rng.integers(0, v, shape).astype(
+        np.int32)).to(cuda) for shape in (b, b, (b, k))]
+    valid = torch.ones(b, dtype=torch.float32, device=cuda)
+    args = (emb_in, emb_out, *idx, valid, valid.sum())
+    want = sgns_fused_tables(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(20):
+        outs.append(sgns_fused_tables(*args))
+        with torch.cuda.stream(side):
+            outs.append(sgns_fused_tables(*args))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for got in outs:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_fused_streamed_trainer_on_card_matches_cpu(cuda):

@@ -207,3 +207,251 @@ def test_wrappers_validate_inputs():
     meta = [t.to("meta") for t in (cand, cw, u, prev, r)]
     with pytest.raises(ValueError):
         K.node2vec_step(*meta, 1.0, 1.0)
+
+
+# ---- the live-lane draw of csrc/node2vec_step.cu, emulated in numpy ----
+
+BASE = 16
+
+
+def _block_scan(a, nl):
+    """In-block inclusive float32 scans of the live entries of one level
+    [R, n] (entries at or past nl[r] are NaN and never read), and the live
+    block totals (the next level, NaN past its live entries)."""
+    rows, n = a.shape
+    nb = -(-n // BASE)
+    ap = np.pad(a, ((0, 0), (0, nb * BASE - n)), constant_values=np.nan)
+    within = np.full((rows, nb * BASE), np.nan, np.float32)
+    acc = np.zeros((rows, nb), np.float32)
+    for j in range(BASE):
+        idx = np.arange(nb) * BASE + j
+        live = idx[None, :] < nl[:, None]
+        acc = np.where(live, acc + ap[:, idx], acc)
+        within[:, idx] = np.where(live, acc, np.nan)
+    nbl = -(-nl // BASE)
+    totals = np.where(np.arange(nb)[None, :] < nbl[:, None], acc, np.nan)
+    return within[:, :n], totals.astype(np.float32), nbl
+
+
+def _levels(x, live):
+    """Every level of the blocked scan with the padded width's structure
+    (the top has <= 16 entries), touching live entries only."""
+    levels, a, nl, n = [], x, live, x.shape[1]
+    while True:
+        within, totals, nbl = _block_scan(a, nl)
+        levels.append((within, nl, n))
+        if n <= BASE:
+            return levels
+        a, nl, n = totals, nbl, -(-n // BASE)
+
+
+def _prefix(levels, r, l, i):
+    """P_l(i) of row r: W_l(i) + P_{l+1}(i // 16 - 1), where W past the
+    live entries is the last live block's total in that block, else 0
+    (the rule of scan_levels)."""
+    within, nl, n = levels[l]
+    li = int(nl[r])
+    if i < li:
+        w = within[r, i]
+    elif li > 0 and i // BASE == (li - 1) // BASE:
+        w = within[r, li - 1]
+    else:
+        w = np.float32(0.0)
+    if n <= BASE or i < BASE:
+        return np.float32(w)
+    return np.float32(w + _prefix(levels, r, l + 1, i // BASE - 1))
+
+
+def _live_rows(rng, rows, d, live):
+    """Probabilities with NaN in every dead lane, and the same rows
+    zero-padded as the padded contract holds them."""
+    lane = np.arange(d)[None, :]
+    vals = (rng.random((rows, d)) * rng.choice([0.5, 1.0, 2.0, 4.0],
+                                               (rows, d))).astype(np.float32)
+    return (np.where(lane < live[:, None], vals, np.nan).astype(np.float32),
+            np.where(lane < live[:, None], vals, 0.0).astype(np.float32))
+
+
+@pytest.mark.parametrize("d", [147, 300, 913, 4100])
+def test_trimmed_total_equals_padded_cumsum(d):
+    """The total the live-lane kernel forms from live blocks alone, by the
+    padded width's level structure, equals cum[D - 1] of the zero-padded
+    row (prefix_sum and jnp.cumsum) for every live length 0..D; cum[L - 1]
+    does not, from D = 300 on."""
+    rng = np.random.default_rng(d)
+    differ = 0
+    for lo in range(0, d + 1, 1024):
+        live = np.arange(lo, min(lo + 1024, d + 1))
+        dead_nan, padded = _live_rows(rng, len(live), d, live)
+        levels = _levels(dead_nan, live)
+        got = np.array([_prefix(levels, r, 0, d - 1)
+                        for r in range(len(live))], np.float32)
+        cum = prefix_sum(torch.from_numpy(padded)).numpy()
+        assert np.array_equal(got, cum[:, -1])
+        jcum = np.asarray(jax.jit(lambda a: jnp.cumsum(a, axis=-1))(padded))
+        assert np.array_equal(got, jcum[:, -1])
+        at_live = cum[np.arange(len(live)), np.maximum(live - 1, 0)]
+        differ += int(((got != at_live) & (live > 0)).sum())
+    assert (differ > 0) == (d > 256)
+
+
+def _emulated_draw(cand, w, u, prev, r, p, q):
+    """The live-lane draw of one batch of padded rows, lane by lane as the
+    kernel does it: only live lanes read, prefixes by the blocked rule,
+    total by the padded structure, slot clamped to D - 1."""
+    rows, d = cand.shape
+    live = (cand != PAD_ID).sum(1)
+    plive = (prev != PAD_ID).sum(1)
+    p_inv, q_inv = np.float32(1.0 / p), np.float32(1.0 / q)
+    probs = np.full((rows, d), np.nan, np.float32)
+    for i in range(rows):
+        x = cand[i, :live[i]]
+        member = np.isin(x, prev[i, :plive[i]])
+        alpha = np.where(x == u[i], p_inv,
+                         np.where(member, np.float32(1.0), q_inv))
+        probs[i, :live[i]] = alpha.astype(np.float32) * w[i, :live[i]]
+    levels = _levels(probs, live)
+    slots = np.zeros(rows, np.int32)
+    for i in range(rows):
+        target = np.float32(r[i] * _prefix(levels, i, 0, d - 1))
+        count = 0
+        for j in range(live[i]):
+            b = j // BASE
+            cum = levels[0][0][i, j]
+            if b > 0:
+                cum = np.float32(cum + _prefix(levels, i, 1, b - 1))
+            count += int(cum <= target)
+        slots[i] = min(count, d - 1)
+    return slots
+
+
+@pytest.mark.parametrize("d", [1, 16, 17, 147, 300, 913])
+def test_emulated_live_draw_matches_exact_slots(d):
+    """The kernel's algorithm (live lanes only) draws exact_slots' slots on
+    rows whose live lengths sit at block and level edges, rand near 1
+    included."""
+    rng = np.random.default_rng(d + 5)
+    edges = sorted({x for x in (0, 1, 15, 16, 17, 31, 255, 256, 257, 272,
+                                d // 2, d - 1, d) if 0 <= x <= d})
+    live = np.array(edges * 3)
+    rows = len(live)
+    cand = np.sort(rng.integers(0, 1 << 20, (rows, d)), axis=1) + np.arange(d)
+    lane = np.arange(d)[None, :]
+    cand = np.where(lane < live[:, None], cand, PAD_ID).astype(np.int32)
+    w = np.where(lane < live[:, None], rng.random((rows, d)) + 0.1,
+                 0.0).astype(np.float32)
+    pick = cand[np.arange(rows)[:, None],
+                rng.integers(0, np.maximum(live, 1)[:, None], (rows, d))]
+    prev = np.sort(np.where(rng.random((rows, d)) < 0.5, pick, PAD_ID),
+                   axis=1).astype(np.int32)
+    u = cand[np.arange(rows), rng.integers(0, np.maximum(live, 1))]
+    r = rng.random(rows).astype(np.float32)
+    r[::3] = np.float32(1 - 2.0 ** -24)
+    got = _emulated_draw(cand, w, u, prev, r, 0.5, 2.0)
+    want = exact_slots(*map(torch.from_numpy, (cand, w, u, prev, r)), 0.5,
+                       2.0).numpy()
+    assert np.array_equal(got, want)
+
+
+def _hub_graph(seed=0, n=1200):
+    """Random edges plus hubs of degree ~300-1000, so FN-Cache rows span
+    three scan levels at hot_cap >= 913."""
+    from repro.core.graph import CSRGraph as JaxCSR
+    rng = np.random.default_rng(seed)
+    src = [rng.integers(0, n, 6 * n)]
+    dst = [rng.integers(0, n, 6 * n)]
+    for hub, deg in zip(range(6), (300, 520, 700, 913, 960, 1000)):
+        src.append(np.full(deg, hub))
+        dst.append(rng.choice(np.arange(6, n), deg, replace=False))
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    wgt = (rng.random(src.size) * 3 + 0.25).astype(np.float32)
+    return JaxCSR.from_edges(n, src, dst, wgt)
+
+
+def _layout_pair(g, cap, hot_cap=None):
+    from repro.core.graph import PaddedGraph as JaxPG
+    from repro_torch.convert import padded_graph_from_numpy
+    from repro_torch.core.graph import FIELDS
+    jpg = JaxPG.build(g, cap=cap, hot_cap=hot_cap)
+    pg = padded_graph_from_numpy({f: np.asarray(getattr(jpg, f))
+                                  for f in FIELDS}, jpg.n, jpg.cap,
+                                 jpg.hot_cap, device="cpu")
+    return jpg, pg
+
+
+def _jax_layout_draw(jpg, u, v, r, p, q):
+    """The JAX package's step on its own full-width rows: unified_row,
+    Sampler.exact, the gather and the dead-end rule."""
+    from repro.core.walk import unified_row as jax_unified_row
+    rows = jax.vmap(lambda x: jax_unified_row(jpg, x))
+    ids, w = rows(jnp.asarray(v))[:2]
+    prev = rows(jnp.asarray(u))[0]
+    slot = JaxSampler(p=p, q=q).exact(jnp.asarray(r), ids, w, jnp.asarray(u),
+                                      prev)
+    nxt = jnp.take_along_axis(ids, slot[:, None].astype(jnp.int32), 1)[:, 0]
+    nxt = jnp.where(jpg.deg[jnp.asarray(v)] > 0, nxt, jnp.asarray(v))
+    return np.asarray(slot), np.asarray(nxt)
+
+
+@pytest.mark.parametrize("cap,hot_cap", [(None, None), (24, None),
+                                         (24, 1100)])
+def test_layout_plain_matches_jax(cap, hot_cap):
+    """node2vec_step_layout (its plain version, on the CPU) draws the JAX
+    package's slots and next vertices on FN-Base and FN-Cache layouts
+    (hot_cap 1,000 and 1,100: three scan levels), hubs and dead ends
+    included."""
+    g = _hub_graph()
+    jpg, pg = _layout_pair(g, cap, hot_cap)
+    assert pg.hot_cap >= 913
+    rng = np.random.default_rng(3)
+    wk = 512
+    v = np.concatenate([np.arange(6), rng.integers(0, g.n, wk - 6)])
+    nbr = [g.neighbors(x) for x in v]
+    u = np.array([rng.choice(nb) if len(nb) else rng.integers(0, g.n)
+                  for nb in nbr]).astype(np.int32)
+    v = v.astype(np.int32)
+    r = rng.random(wk).astype(np.float32)
+    r[:6] = np.float32(1 - 2.0 ** -24)
+    for p, q in [(1.0, 0.5), (0.5, 2.0)]:
+        want = _jax_layout_draw(jpg, u, v, r, p, q)
+        slot, nxt = K.node2vec_step_layout(
+            pg, *map(torch.from_numpy, (u, v, r)), p, q)
+        assert slot.dtype == nxt.dtype == torch.int32
+        assert np.array_equal(slot.numpy(), want[0])
+        assert np.array_equal(nxt.numpy(), want[1])
+
+
+def test_slot_past_the_live_lanes_gives_pad():
+    """slot == L when r * total reaches cum[L - 1] while staying below the
+    padded total (which exceeds cum[L - 1] by an ulp in some rows at D >
+    256): the padded row's id there is PAD_ID, in the JAX package as here,
+    since the clamp is to D - 1, not L - 1. A hub of 600 live lanes in a
+    layout of hot_cap 914, rand = 1 - 2^-24."""
+    from repro.core.graph import CSRGraph as JaxCSR
+    n, live = 1000, 600
+    src = np.concatenate([np.zeros(live), np.ones(913)])
+    dst = np.concatenate([np.arange(1, live + 1), np.arange(87, 1000)])
+    r = np.float32(1 - 2.0 ** -24)
+    for seed in range(400):
+        wgt = np.random.default_rng(seed).random(src.size).astype(
+            np.float32) + np.float32(0.25)
+        g = JaxCSR.from_edges(n, src, dst, wgt)
+        row = np.zeros((1, g.max_degree), np.float32)
+        row[0, :live] = g.weights(0)
+        cum = prefix_sum(torch.from_numpy(row))[0]
+        if cum[-1] > cum[live - 1] and \
+                int((cum[:live] <= r * cum[-1]).sum()) == live:
+            break
+    else:
+        raise AssertionError("no row with total > cum[L - 1] found")
+    jpg, pg = _layout_pair(g, cap=24)
+    assert pg.hot_cap == 914 and int(pg.deg[0]) == live
+    u = np.array([1, 5, 600], np.int32)
+    v = np.zeros(3, np.int32)
+    rand = np.full(3, r, np.float32)
+    slot, nxt = K.node2vec_step_layout(
+        pg, *map(torch.from_numpy, (u, v, rand)), 1.0, 1.0)
+    want = _jax_layout_draw(jpg, u, v, rand, 1.0, 1.0)
+    assert np.array_equal(slot.numpy(), want[0])
+    assert np.array_equal(nxt.numpy(), want[1])
+    assert slot.tolist() == [live] * 3 and nxt.tolist() == [PAD_ID] * 3

@@ -22,7 +22,9 @@ from repro_torch.core import skipgram as tsg
 from repro_torch.core.node2vec import Node2VecConfig, node2vec
 from repro_torch.data import corpus as tcorpus
 from repro_torch.data.store import open_graph
-from repro_torch.kernels.sgns import sgns_fused, sgns_fused_plain
+from repro_torch.kernels.sgns import (sgns_fused, sgns_fused_plain,
+                                      sgns_fused_tables,
+                                      sgns_fused_tables_plain)
 from repro_torch.optim import optimizers as topt
 
 KERNEL_SHAPES = [(8, 1, 16), (64, 5, 32), (100, 8, 128), (512, 5, 200),
@@ -119,6 +121,55 @@ def test_sgns_grads_match_jax(backend):
     for k in ("emb_in", "emb_out"):
         np.testing.assert_allclose(_np(tgrads[k]), np.asarray(jgrads[k]),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("vocab,b,k,d", [(60, 128, 4, 24),
+                                         (500, 1024, 5, 128),
+                                         (40, 33, 40, 16)])
+def test_sgns_fused_tables_plain_matches_jax_fused(vocab, b, k, d):
+    """The table entry's plain version (rows gathered, the plain kernel,
+    every output over denom), scattered into the tables, gives JAX
+    sgns_grads(backend="fused")'s loss and grads within 1e-4; the wrapper
+    runs it on CPU tensors, launches nothing and checks its inputs."""
+    rng = np.random.default_rng(vocab + b)
+    jparams = jsg.init_params(jsg.SGNSConfig(vocab=vocab, dim=d),
+                              jax.random.PRNGKey(2))
+    jparams["emb_out"] = jnp.asarray(
+        rng.normal(size=(vocab, d)).astype(np.float32) * 0.3)
+    batch = _batch(rng, vocab, b, k)
+    jloss, jgrads = jsg.sgns_grads(
+        jparams, {k_: jnp.asarray(v) for k_, v in batch.items()}, "fused")
+    emb_in, emb_out = (torch.from_numpy(np.array(jparams[n]))
+                       for n in ("emb_in", "emb_out"))
+    idx = [torch.from_numpy(batch[n]) for n in ("center", "pos", "neg")]
+    valid = torch.from_numpy(batch["valid"])
+    denom = torch.clamp(valid.sum(), min=1.0)
+    before = sgns_fused.launches
+    got = sgns_fused_tables(emb_in, emb_out, *idx, valid, denom)
+    assert sgns_fused.launches == before
+    want = sgns_fused_tables_plain(emb_in, emb_out, *idx, valid, denom)
+    composed = sgns_fused_plain(emb_in[idx[0].long()], emb_out[idx[1].long()],
+                                emb_out[idx[2].long()], valid)
+    for g, w, c in zip(got, want, composed):
+        assert torch.equal(g, w) and torch.equal(g, c / denom)
+    np.testing.assert_allclose(float(got[0]), float(jloss), rtol=1e-4,
+                               atol=1e-4)
+    g_in = torch.zeros_like(emb_in).index_add_(0, idx[0].long(), got[1])
+    g_out = torch.zeros_like(emb_out).index_add_(0, idx[1].long(), got[2]) \
+        .index_add_(0, idx[2].reshape(-1).long(), got[3].reshape(-1, d))
+    for g, name in ((g_in, "emb_in"), (g_out, "emb_out")):
+        np.testing.assert_allclose(_np(g), np.asarray(jgrads[name]),
+                                   rtol=1e-4, atol=1e-4)
+    masked = batch["valid"] == 0
+    for g in got[1:]:
+        assert np.all(_np(g)[masked] == 0)
+    with pytest.raises(TypeError):
+        sgns_fused_tables(emb_in, emb_out, idx[0].long(), *idx[1:], valid,
+                          denom)
+    with pytest.raises(ValueError):
+        sgns_fused_tables(emb_in, emb_out[:, :8], *idx, valid, denom)
+    with pytest.raises(ValueError):
+        sgns_fused_tables(emb_in, emb_out, *idx, valid, denom.double())
 
 
 def test_train_step_fused_matches_jnp_and_jax():
