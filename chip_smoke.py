@@ -9,11 +9,15 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
 
 1. holds each kernel against its plain PyTorch version on the card, on
    inputs made from a numpy seed (slots and walks must be ``torch.equal``):
-   ``node2vec_step``'s row entry and its first, padded-row design
-   (``node2vec_step_padded``) at nine shapes up to D=20,000, and both
+   ``node2vec_step``'s row entry at nine shapes up to D=20,000, and both
    entries (row and layout) at widths 1 to 20,000 with the live lengths of
    v's and u's rows at block and level edges and rand near 1, the layout
    entry also equal to the row entry on the unified rows;
+   ``node2vec_walk`` on four random shapes, at widths 1 to 20,000 with
+   live lengths at block and level edges, dead ends, rand at 0 and
+   1 - 2^-24, W = 4k + 3, 37 steps and walkers from PAD_ID or with u0
+   past n, and on the hub graph whose walkers draw PAD_ID and must stay
+   there;
    1b. ``sgns_fused``'s row and table entries against their plain versions
    at nine shapes up to B=65,536, K=40 and D=1,024 (``atol=rtol=3e-4``,
    masked rows exactly 0, two launches on one input ``torch.equal``), the
@@ -33,8 +37,8 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    backend's, the kernel (its layout entry) must launch once per
    superstep, and in exact mode no superstep may build full-width rows
    (``unified_row`` runs once a round, for step 0's first-order draw). At
-   superstep 40 both entries, the padded-row design and the row assembly
-   the layout entry removes are timed;
+   superstep 40 both entries and the row assembly the layout entry removes
+   are timed;
    path C — streamed SGNS on path A's layout: ``StreamingSGNSTrainer(
    vocab=131_072, dim=128, window=10, negatives=5, batch_size=1024,
    sgns_backend="fused")`` ``.train()``s over 2 FN-Multi rounds of 1,024
@@ -53,7 +57,9 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    B=1,024 and B=65,536;
 3. main path B — the whole-walk ``node2vec_walk`` kernel on the FN-Base
    layout (``er:k=18,deg=100,seed=0``, ``pipeline=True``, one round); walks
-   must equal the reference backend's, one launch;
+   must equal the reference backend's, one launch; then the same on path
+   A's graph through FN-Base (rows 913 wide, the kernel's draw for rows
+   wider than 256), the kernel timed there too;
 4. times each kernel and its plain version with CUDA events at the main
    path's inputs, beside the least time the card could take for them: the
    bytes the draws need (live lanes only, not the PAD lanes that pad each
@@ -87,16 +93,23 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    greedy tokens): the logits within ``atol=rtol=1e-3``, tokens equal.
 
 It prints the card's name and power limit, the build seconds, the
-registers and spills of the tensor-core kernel, walker-steps
-per second for each walk phase, prefill tokens/s and decode ms/token, a
-``{"kernels": [...]}`` line, and last
+registers and spills of the walk kernels and the tensor-core kernel,
+walker-steps per second for each walk phase, prefill tokens/s and decode
+ms/token, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
+
+    python3 chip_smoke.py --walks
+
+runs phase 3 alone and prints its kernel times as one JSON line: copied
+into a checkout of another commit, it times that commit's walk kernel on
+the same inputs.
 """
 from __future__ import annotations
 
 import ctypes
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -117,6 +130,7 @@ KERNEL_LIBS = ("node2vec_step", "sgns", "flash_attention",
                "flash_attention_sm90")
 A_SPEC = "wec:k=17,deg=100,seed=0"
 B_SPEC = "er:k=18,deg=100,seed=0"
+WIDE = "B on A's graph"         # path B's kernel at rows 913 wide
 LENGTH = 80
 TOP = 8                         # kernels listed per profiled round
 SGNS_TOL = 3e-4                 # the JAX package's kernel tolerance
@@ -124,6 +138,13 @@ SGNS_SHAPES = [(8, 1, 16), (64, 5, 32), (100, 8, 128), (512, 5, 200),
                (3, 12, 300), (256, 40, 64), (256, 5, 1024), (1024, 5, 128),
                (65536, 5, 128)]
 STEP_EDGE_WIDTHS = (1, 16, 17, 147, 256, 257, 913, 4100, 20000)
+# the walk kernel's widths: both draws (small rows up to 256, live-lane
+# chunks past it) at their block and chunk edges, the hub graph's 914, and
+# two widths whose prev rows do not fit the shared budget (u's row searched
+# in place)
+WALK_EDGE_WIDTHS = (1, 16, 17, 147, 256, 257, 300, 512, 513, 793, 914,
+                    12000, 20000)
+WALK_EDGE_STEPS = 37            # L - 1, not a multiple of 16 or 32
 C_EVERY = 128                   # path C walks every 128th vertex
 C_ROUNDS = 2
 C_PROFILE_WALKERS = 137         # ~200 optimizer steps at length 80
@@ -321,11 +342,88 @@ def edge_layout(np, torch, rng, d: int, cap: int, pad: int):
     return PaddedGraph.from_numpy(fields, n, torch.device(DEV)), rows
 
 
-def check_step_edges(np, torch, K, rng, d: int, pad: int) -> int:
-    """Both node2vec_step entries (and the padded-row design) at width d,
-    live lengths at block and level edges, rand near 1: each equals its
-    plain version and the layout entry the row entry on the unified rows.
+def walk_edge_inputs(np, rng, d: int, pad: int):
+    """A layout of row width d whose vertices' live lengths cycle through
+    the edges of d (0: dead ends), on at most 2,048 vertices (a longer row
+    draws its sorted ids with repeats), 4k + 3 walkers (not a multiple of a
+    block's 4), one of them from PAD_ID and one with u0 past n, and
+    uniforms with every eleventh at 1 - 2^-24 and some at 0; about 1% of
+    the vertices are dead ends. Returns numpy (adj, wgt, deg, u0, v1, rand)."""
+    lives = edge_lives(d)
+    n = max(4 * len(lives), min(d + 1, 2048))
+    deg = np.resize([k for k in lives if k], n).astype(np.int32)
+    rng.shuffle(deg)
+    deg[rng.random(n) < 0.01] = 0
+    deg[rng.integers(0, n)] = 0
+    adj = np.full((n, d), pad, np.int32)
+    wgt = np.zeros((n, d), np.float32)
+    for v, k in enumerate(deg):
+        ids = rng.choice(n, k, replace=False) if k <= n else \
+            rng.integers(0, n, k)
+        adj[v, :k] = np.sort(ids)
+        wgt[v, :k] = rng.random(k) + 0.1
+    w = 4 * len(lives) + 3
+    u0 = rng.integers(0, n, w).astype(np.int32)
+    v1 = rng.integers(0, n, w).astype(np.int32)
+    v1[0], u0[1] = pad, n + 5
+    rand = rng.random((w, WALK_EDGE_STEPS)).astype(np.float32)
+    rand.flat[::11] = np.float32(1 - 2.0 ** -24)
+    rand.flat[5::13] = 0.0
+    return adj, wgt, deg, u0, v1, rand
+
+
+def pad_hub(np, torch):
+    """The hub graph of tests/test_torch_sampler.py's PAD_ID tests: a hub of
+    600 live lanes at width 914 whose padded total passes cum[L - 1], so
+    rand = 1 - 2^-24 draws slot == L -> PAD_ID. Returns numpy (adj, wgt,
+    deg, u0, v1, rand) of its FN-Base layout and 11 walkers, the first
+    three stepping from the hub to PAD_ID."""
+    from repro_torch.core.graph import CSRGraph, layout_arrays
+    from repro_torch.engine.sampler import prefix_sum
+    n, live = 1000, 600
+    src = np.concatenate([np.zeros(live), np.ones(913)])
+    dst = np.concatenate([np.arange(1, live + 1), np.arange(87, 1000)])
+    r = np.float32(1 - 2.0 ** -24)
+    for seed in range(400):
+        g = CSRGraph.from_edges(n, src, dst, np.random.default_rng(
+            seed).random(src.size).astype(np.float32) + np.float32(0.25))
+        row = np.zeros((1, g.max_degree), np.float32)
+        row[0, :live] = g.weights(0)
+        cum = prefix_sum(torch.from_numpy(row))[0]
+        if cum[-1] > cum[live - 1] and \
+                int((cum[:live] <= r * cum[-1]).sum()) == live:
+            break
+    else:
+        raise AssertionError("no hub row with total > cum[L - 1] found")
+    f = layout_arrays(g)
+    rng = np.random.default_rng(0)
+    u0 = np.concatenate([[1, 5, 600], rng.integers(0, n, 8)])
+    v1 = np.concatenate([[0, 0, 0], rng.integers(0, n, 8)])
+    rand = rng.random((11, WALK_EDGE_STEPS)).astype(np.float32)
+    rand[:3] = r
+    return (f["adj"], f["wgt"], f["deg"], u0.astype(np.int32),
+            v1.astype(np.int32), rand)
+
+
+def check_walk(np, torch, K, arrays, p: float, q: float, label: str) -> int:
+    """node2vec_walk on the card ``torch.equal`` to its plain version.
     Returns the largest |kernel - plain|."""
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+            for a in arrays]
+    got = K.node2vec_walk(*args, p, q)
+    want = K.node2vec_walk_plain(*args, p, q)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"node2vec_walk {label}: "
+                             f"{int((got != want).sum())} differ")
+    return int_err(got, want)
+
+
+def check_step_edges(np, torch, K, rng, d: int, pad: int) -> int:
+    """Both node2vec_step entries at width d, live lengths at block and
+    level edges, rand near 1: each equals its plain version and the layout
+    entry the row entry on the unified rows. Returns the largest |kernel -
+    plain|."""
     from repro_torch.core.walk import unified_row
     dev = torch.device(DEV)
     w = 3 * len(edge_lives(d))
@@ -341,13 +439,11 @@ def check_step_edges(np, torch, K, rng, d: int, pad: int) -> int:
     args = [torch.from_numpy(a).to(dev) for a in (
         cand, cw, u.astype(np.int32), prev, edge_rand(np, rng, w))]
     want = K.node2vec_step_plain(*args, 0.5, 2.0)
-    err = 0
-    for fn in (K.node2vec_step, K.node2vec_step_padded):
-        got = fn(*args, 0.5, 2.0)
-        err = max(err, int_err(got, want))
-        if not torch.equal(got, want):
-            raise AssertionError(f"{fn.__name__} at the edges of D={d}: "
-                                 f"{int((got != want).sum())} slots differ")
+    got = K.node2vec_step(*args, 0.5, 2.0)
+    err = int_err(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"node2vec_step at the edges of D={d}: "
+                             f"{int((got != want).sum())} slots differ")
     pg, rows = edge_layout(np, torch, rng, d, min(d, 40), pad)
     wk = 3 * len(rows)
     v = np.resize(np.arange(len(rows)), wk)
@@ -388,35 +484,44 @@ def check_kernels(np, torch, K, pad):
                 for a in step_inputs(np, rng, w, d, dp, pad)]
         for p, q in ((0.5, 2.0), (2.0, 0.5), (1.0, 1.0)):
             want = K.node2vec_step_plain(*args, p, q)
-            for fn in (K.node2vec_step, K.node2vec_step_padded):
-                got = fn(*args, p, q)
-                torch.cuda.synchronize()
-                step_err = max(step_err, int_err(got, want))
-                if not torch.equal(got, want):
-                    bad = int((got != want).sum())
-                    raise AssertionError(f"{fn.__name__} W={w} D={d} "
-                                         f"DP={dp} p={p} q={q}: {bad} slots "
-                                         f"differ")
+            got = K.node2vec_step(*args, p, q)
+            torch.cuda.synchronize()
+            step_err = max(step_err, int_err(got, want))
+            if not torch.equal(got, want):
+                raise AssertionError(f"node2vec_step W={w} D={d} DP={dp} "
+                                     f"p={p} q={q}: "
+                                     f"{int((got != want).sum())} slots "
+                                     f"differ")
     for d in STEP_EDGE_WIDTHS:
         step_err = max(step_err, check_step_edges(np, torch, K, rng, d, pad))
-    log(f"node2vec_step (live-lane) and node2vec_step_padded == plain on "
-        f"{len(cases)} shapes x 3 (p, q); both entries at widths "
-        f"{STEP_EDGE_WIDTHS} with live lengths at block and level edges and "
-        f"rand near 1: row entry, padded entry and layout entry == plain, "
-        f"layout entry == row entry on the unified rows")
-    for n, d, w, steps in [(64, 1, 7, 5), (4096, 130, 4096, 12),
-                           (8192, 300, 65536, 6), (2048, 793, 7, 9),
-                           (40000, 20000, 8, 3)]:
-        args = [torch.from_numpy(a).to(dev)
-                for a in walk_inputs(np, rng, n, d, w, steps, pad)]
-        got = K.node2vec_walk(*args, 0.5, 2.0)
-        want = K.node2vec_walk_plain(*args, 0.5, 2.0)
-        torch.cuda.synchronize()
-        walk_err = max(walk_err, int_err(got, want))
-        if not torch.equal(got, want):
-            raise AssertionError(f"node2vec_walk n={n} D={d} W={w}: "
-                                 f"{int((got != want).sum())} differ")
-    log("node2vec_walk == plain on 5 shapes")
+    log(f"node2vec_step == plain on {len(cases)} shapes x 3 (p, q); both "
+        f"entries at widths {STEP_EDGE_WIDTHS} with live lengths at block "
+        f"and level edges and rand near 1: row entry and layout entry == "
+        f"plain, layout entry == row entry on the unified rows")
+    shapes = [(64, 1, 7, 5), (4096, 130, 4096, 12), (8192, 300, 65536, 6),
+              (2048, 793, 7, 9)]
+    for n, d, w, steps in shapes:
+        walk_err = max(walk_err, check_walk(
+            np, torch, K, walk_inputs(np, rng, n, d, w, steps, pad), 0.5,
+            2.0, f"n={n} D={d} W={w}"))
+    for d in WALK_EDGE_WIDTHS:
+        walk_err = max(walk_err, check_walk(
+            np, torch, K, walk_edge_inputs(np, rng, d, pad), 0.5, 2.0,
+            f"at the edges of D={d}"))
+    hub = pad_hub(np, torch)
+    for p, q in ((1.0, 1.0), (0.5, 2.0)):
+        walk_err = max(walk_err, check_walk(np, torch, K, hub, p, q,
+                                            f"hub p={p} q={q}"))
+    got = K.node2vec_walk(*[torch.from_numpy(a).to(DEV) for a in hub], 1.0,
+                          1.0)
+    if not bool((got[:3] == pad).all()):
+        raise AssertionError("node2vec_walk: the hub's walkers left PAD_ID")
+    log(f"node2vec_walk == plain "
+        f"on {len(shapes)} random shapes, at widths {WALK_EDGE_WIDTHS} with "
+        f"live lengths at block and level edges, dead ends, rand at 0 and "
+        f"1 - 2^-24, W = 4k + 3, {WALK_EDGE_STEPS} steps, v1 = PAD_ID and "
+        f"u0 = n + 5, and on the hub graph whose walkers reach PAD_ID and "
+        f"stay there")
     return step_err, walk_err
 
 
@@ -748,6 +853,85 @@ def time_sgns(np, torch, S, trainer, walks, b: int, label: str) -> dict:
         f"({r['bound'][1]}); max |kernel - plain| {r['err']:.3g}, == old "
         f"composition")
     return r
+
+
+def walk_phase(np, torch, K, spec: str, label: str,
+               profile: bool = False) -> dict:
+    """The whole-walk ``node2vec_walk`` kernel through the engine on the
+    FN-Base layout of ``spec`` (``pipeline=True``, one round): the walks
+    must equal the reference backend's, one launch. Then the kernel and
+    its plain version are timed on that round's inputs (the kernel's
+    output equal to the plain version's and to the round's walks), beside
+    the bound of the bytes the draws need."""
+    from repro_torch import random as jr
+    from repro_torch.core.walk import step_uniforms
+    from repro_torch.engine import WalkEngine, WalkPlan
+    kw = dict(p=1.0, q=0.5, length=LENGTH, pipeline=True)
+    t0 = time.perf_counter()
+    fused = WalkEngine.build(spec, WalkPlan(backend="fused", **kw),
+                             device=DEV)
+    pg = fused.pg
+    mbytes = sum(getattr(pg, f).numel() * getattr(pg, f).element_size()
+                 for f in ("adj", "wgt", "deg", "alias_p", "alias_i"))
+    log(f"{label}: {spec}: n={pg.n} m={fused.store.graph.m} "
+        f"max_deg={pg.cap} layout {mbytes / 1e6:.1f} MB, built in "
+        f"{time.perf_counter() - t0:.2f} s host")
+    if not fused._fused_persistent():
+        raise AssertionError(f"{label}: the whole-walk kernel path is not "
+                             f"live")
+    ref = WalkEngine.build(pg, WalkPlan(backend="reference", **kw))
+    K.node2vec_step.launches = 0
+    K.node2vec_walk.launches = 0
+    walks, secs = drive(torch, fused, 1)
+    launches = K.node2vec_walk.launches
+    if (K.node2vec_walk.launches, K.node2vec_step.launches) != (1, 0):
+        raise AssertionError(
+            f"{label}: launches walk={K.node2vec_walk.launches} "
+            f"step={K.node2vec_step.launches}, want 1 and 0")
+    ref_walks, ref_secs = drive(torch, ref, 1)
+    err = walks_err(np, walks, ref_walks)
+    if err:
+        raise AssertionError(f"{label}: fused walks differ from the "
+                             f"reference")
+    steps = pg.n * LENGTH
+    log(f"{label}: fused {steps / secs:.4g} walker-steps/s ({secs:.3f} s), "
+        f"reference {steps / ref_secs:.4g} walker-steps/s; == reference; "
+        f"node2vec_walk launches {launches}")
+    if profile:
+        profile_round(torch, lambda: fused.run(seed=1), f"{label} "
+                      f"fused+pipeline")
+
+    starts = torch.arange(pg.n, dtype=torch.int32, device=DEV)
+    v1 = torch.from_numpy(walks[0][:, 0].copy()).to(DEV)
+    rand = step_uniforms(jr.PRNGKey(0, device=DEV), starts.long(), LENGTH)
+    args = (pg.adj, pg.wgt, pg.deg, starts, v1, rand, 1.0, 0.5)
+    d = pg.adj.shape[1]
+    got = K.node2vec_walk(*args)
+    want = K.node2vec_walk_plain(*args)
+    err = max(int_err(got, want),
+              walks_err(np, [got.cpu().numpy()], [walks[0][:, 1:]]))
+    if not torch.equal(got, want) or \
+            not np.array_equal(got.cpu().numpy(), walks[0][:, 1:]):
+        raise AssertionError(f"node2vec_walk differs on {label}'s inputs")
+    ms = cuda_ms(torch, lambda: K.node2vec_walk(*args), 3)
+    plain_ms = cuda_ms(torch, lambda: K.node2vec_walk_plain(*args), 1)
+    wk, st = rand.shape
+    # what the walk needs: u0's live row once, then per step v's live ids
+    # and weights and deg[v] (v = walks[:, s]), one uniform in and one
+    # vertex out; u0 and v1 in per walker
+    deg_v = pg.deg[torch.from_numpy(
+        np.ascontiguousarray(walks[0][:, :st])).to(DEV).long()].long()
+    bound = bound_ms(
+        int((4 * deg_v.add(1).clamp(max=d) + 4 * deg_v).sum())
+        + 8 * deg_v.numel() + 4 * int(pg.deg[starts.long()].long().sum())
+        + 8 * wk, 3 * int(deg_v.sum()))
+    log(f"{label}: node2vec_walk W={wk} steps={st} D={d} (mean live lanes "
+        f"{float(deg_v.double().mean()):.2f} of v): {ms:.4f} ms; plain "
+        f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    del fused, ref, pg, args, rand, got, want
+    torch.cuda.empty_cache()
+    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound": bound, "d": d}
 
 
 def path_d(np, torch, device=None):
@@ -1107,6 +1291,28 @@ def _to_cpu(tree):
             for k, v in tree.items()}
 
 
+def log_report(report: str, lib: str) -> None:
+    """Each kernel's registers, stack and spills from ``lib``'s
+    ``-Xptxas -v`` report, under the kernel's name (its integer and bool
+    template arguments shown as <16, true>)."""
+    kernel = "?"
+    for line in report.splitlines():
+        entry = re.search(r"entry function '(\w+)'", line)
+        if entry:   # _ZN, then <length><name> pieces (Itanium mangling)
+            mangled, i = entry.group(1), 3
+            while i < len(mangled) and mangled[i].isdigit():
+                j = re.match(r"\d+", mangled[i:]).end() + i
+                i = j + int(mangled[i:j])
+                kernel = mangled[j:i]
+            pairs = re.findall(r"L([a-z])(\d+)E", re.match(
+                r"(I(?:L[a-z]\d+E)+E)?", mangled[i:]).group())
+            kernel += "<" + ", ".join(("false", "true")[int(x)] if t == "b"
+                                      else x for t, x in pairs) + ">" \
+                if pairs else ""
+        elif "registers" in line or "spill" in line or "Potential" in line:
+            log(f"  {lib} {kernel}: {line.strip()}")
+
+
 def count_calls(module, name: str):
     """Wrap ``module.name`` in a counter; the returned function puts the
     original back and returns the count."""
@@ -1132,7 +1338,10 @@ def drive(torch, engine, rounds: int):
     return walks, time.perf_counter() - t0
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv not in ([], ["--walks"]):
+        print("usage: python3 chip_smoke.py [--walks]", file=sys.stderr)
+        return 2
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -1160,13 +1369,21 @@ def main() -> int:
     log(f"card: {smi}")
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    if argv:   # phase 3 alone
+        build.load_all(("node2vec_step",))
+        log_report(build.report("node2vec_step"), "node2vec_step")
+        walk = walk_phase(np, torch, K, B_SPEC, "B")
+        wide = walk_phase(np, torch, K, A_SPEC, WIDE)
+        print(json.dumps({"node2vec_walk": {
+            "ms": walk["ms"], "d": walk["d"], "ms_wide": wide["ms"],
+            "d_wide": wide["d"]}}), flush=True)
+        return 0
     t0 = time.perf_counter()
     build.load_all(KERNEL_LIBS)
     one_rounding = load_one_rounding(build)
     log(f"kernel build: {time.perf_counter() - t0:.2f} s host")
-    for line in build.report("flash_attention_sm90").splitlines():
-        if "registers" in line or "spill" in line or "Potential" in line:
-            log(f"  flash_attention_sm90: {line.strip()}")
+    for name in ("node2vec_step", "flash_attention_sm90"):
+        log_report(build.report(name), name)
 
     step_err, walk_err = check_kernels(np, torch, K, PAD_ID)
     sgns_err = check_sgns(np, torch, S)
@@ -1247,8 +1464,7 @@ def main() -> int:
     layout_args = (pg_a, u_s, v_s, rand, 1.0, 0.5)
     slot, nxt = K.node2vec_step_layout(*layout_args)
     want, want_nxt = K.node2vec_step_layout_plain(*layout_args)
-    for got in (slot, K.node2vec_step(*step_args),
-                K.node2vec_step_padded(*step_args)):
+    for got in (slot, K.node2vec_step(*step_args)):
         step_err = max(step_err, int_err(got, want))
         if not torch.equal(got, want):
             raise AssertionError("node2vec_step differs on path A's inputs")
@@ -1256,19 +1472,18 @@ def main() -> int:
     if not torch.equal(nxt, want_nxt):
         raise AssertionError("node2vec_step_layout's next vertices differ on "
                              "path A's inputs")
-    new_fn = lambda: K.node2vec_step_layout(*layout_args)    # noqa: E731
-    old_fn = lambda: K.node2vec_step_padded(*step_args)      # noqa: E731
-    t = [cuda_ms(torch, fn, 20) for fn in (new_fn, old_fn, old_fn, new_fn)]
-    step = {"ms_layout": (t[0] + t[3]) / 2, "ms_old": (t[1] + t[2]) / 2,
-            "ms_rows_entry": cuda_ms(torch, lambda: K.node2vec_step(
-                *step_args), 20),
+    layout_fn = lambda: K.node2vec_step_layout(*layout_args)  # noqa: E731
+    rows_fn = lambda: K.node2vec_step(*step_args)             # noqa: E731
+    t = [cuda_ms(torch, fn, 20) for fn in (layout_fn, rows_fn, rows_fn,
+                                           layout_fn)]
+    step = {"ms_layout": (t[0] + t[3]) / 2,
+            "ms_rows_entry": (t[1] + t[2]) / 2,
             "rows_ms": cuda_ms(torch, rows, 10),
             "plain_ms": cuda_ms(torch, lambda: K.node2vec_step_layout_plain(
                 *layout_args), 5),
             "plain_rows_ms": cuda_ms(torch, lambda: K.node2vec_step_plain(
                 *step_args), 5)}
     wk, d = cand.shape
-    dp = prev.shape[1]
     # what the layout entry needs: v's live ids and weights, u's live ids,
     # u, v, r, hot_pos and deg of u and v in, slot and next vertex out; the
     # row entry reads v's ids up to and including the PAD edge and writes
@@ -1280,18 +1495,15 @@ def main() -> int:
     rows_bound = bound_ms(
         int((4 * live_v.add(1).clamp(max=d) + 4 * live_v + 4 * live_u).sum())
         + 12 * wk, 3 * int(live_v.sum()))
-    padded_ms = wk * (4 * d + 4 * d + 4 * dp + 12) / HBM_BYTES_PER_S * 1e3
-    log(f"node2vec_step W={wk} D={d} DP={dp} (mean live lanes "
+    log(f"node2vec_step W={wk} D={d} (mean live lanes "
         f"{float(live_v.double().mean()):.2f} of v, "
         f"{float(live_u.double().mean()):.2f} of u): layout entry "
         f"{step['ms_layout']:.4f} ms, bound {step_bound[0]:.4f} ms "
         f"({step_bound[1]}); row entry on the unified rows "
         f"{step['ms_rows_entry']:.4f} ms (bound {rows_bound[0]:.4f} ms) + "
         f"the rows' assembly (unified_row of v and u) {step['rows_ms']:.4f} "
-        f"ms; the padded-row design {step['ms_old']:.4f} ms "
-        f"({padded_ms:.4f} ms over the padded rows); plain layout "
-        f"{step['plain_ms']:.4f} ms, plain rows {step['plain_rows_ms']:.4f} "
-        f"ms")
+        f"ms; plain layout {step['plain_ms']:.4f} ms, plain rows "
+        f"{step['plain_rows_ms']:.4f} ms")
     del first, fused, ref, walks, ref_walks, cand, cw, prev
 
     # ---- main path C: streamed SGNS with the fused kernel --------------
@@ -1305,69 +1517,9 @@ def main() -> int:
     del trainer, c_walks, pg_a
 
     # ---- main path B: whole-walk kernel, FN-Base -----------------------
-    spec_b = B_SPEC
-    kw = dict(p=1.0, q=0.5, length=LENGTH, pipeline=True)
-    t0 = time.perf_counter()
-    fused = WalkEngine.build(spec_b, WalkPlan(backend="fused", **kw),
-                             device=DEV)
-    pg_b = fused.pg
-    mbytes = sum(getattr(pg_b, f).numel() * getattr(pg_b, f).element_size()
-                 for f in ("adj", "wgt", "deg", "alias_p", "alias_i"))
-    log(f"B: {spec_b}: n={pg_b.n} m={fused.store.graph.m} "
-        f"max_deg={pg_b.cap} layout {mbytes / 1e6:.1f} MB, built in "
-        f"{time.perf_counter() - t0:.2f} s host")
-    if not fused._fused_persistent():
-        raise AssertionError("B: the whole-walk kernel path is not live")
-    ref = WalkEngine.build(pg_b, WalkPlan(backend="reference", **kw))
-    K.node2vec_step.launches = 0
-    K.node2vec_walk.launches = 0
-    walks, secs = drive(torch, fused, 1)
-    walk_launches = K.node2vec_walk.launches
-    if (K.node2vec_walk.launches, K.node2vec_step.launches) != (1, 0):
-        raise AssertionError(
-            f"B: launches walk={K.node2vec_walk.launches} "
-            f"step={K.node2vec_step.launches}, want 1 and 0")
-    ref_walks, ref_secs = drive(torch, ref, 1)
-    walk_err = max(walk_err, walks_err(np, walks, ref_walks))
-    if walk_err:
-        raise AssertionError("B: fused walks differ from the reference")
-    steps = pg_b.n * LENGTH
-    log(f"B: fused {steps / secs:.4g} walker-steps/s ({secs:.3f} s), "
-        f"reference {steps / ref_secs:.4g} walker-steps/s; == reference; "
-        f"node2vec_walk launches {walk_launches}")
-    profile_round(torch, lambda: fused.run(seed=1), "B fused+pipeline")
-
-    starts = torch.arange(pg_b.n, dtype=torch.int32, device=DEV)
-    v1 = torch.from_numpy(walks[0][:, 0].copy()).to(DEV)
-    rand = step_uniforms(jr.PRNGKey(0, device=DEV), starts.long(),
-                         LENGTH)
-    walk_args = (pg_b.adj, pg_b.wgt, pg_b.deg, starts, v1, rand, 1.0, 0.5)
-    tail = K.node2vec_walk(*walk_args)
-    want = K.node2vec_walk_plain(*walk_args)
-    walk_err = max(walk_err, int_err(tail, want),
-                   walks_err(np, [tail.cpu().numpy()], [walks[0][:, 1:]]))
-    if not torch.equal(tail, want) or \
-            not np.array_equal(tail.cpu().numpy(), walks[0][:, 1:]):
-        raise AssertionError("node2vec_walk differs on path B's inputs")
-    walk_ms = cuda_ms(torch, lambda: K.node2vec_walk(*walk_args), 3)
-    walk_plain_ms = cuda_ms(torch, lambda: K.node2vec_walk_plain(
-        *walk_args), 1)
-    n, d = pg_b.adj.shape
-    wk, st = rand.shape
-    # what the walk needs: u0's live row once, then per step v's ids up to
-    # and including the PAD edge and its live weights (v = walks[:, s]),
-    # one uniform in and one vertex out; u0 and v1 in per walker
-    deg_v = pg_b.deg[torch.from_numpy(
-        np.ascontiguousarray(walks[0][:, :st])).to(DEV).long()].long()
-    walk_bound = bound_ms(
-        int((4 * deg_v.add(1).clamp(max=d) + 4 * deg_v).sum())
-        + 8 * deg_v.numel() + 4 * int(pg_b.deg[starts.long()].long().sum())
-        + 8 * wk, 3 * int(deg_v.sum()))
-    padded_ms = wk * (st * (8 * d + 12) + 4 * d + 8) / HBM_BYTES_PER_S * 1e3
-    log(f"node2vec_walk W={wk} steps={st} D={d} (mean live lanes "
-        f"{float(deg_v.double().mean()):.2f} of v): {walk_ms:.4f} ms, plain "
-        f"{walk_plain_ms:.4f} ms, bound {walk_bound[0]:.4f} ms "
-        f"({walk_bound[1]}; {padded_ms:.4f} ms over the padded rows)")
+    walk = walk_phase(np, torch, K, B_SPEC, "B", profile=True)
+    wide = walk_phase(np, torch, K, A_SPEC, WIDE)
+    walk_err = max(walk_err, walk["err"], wide["err"])
 
     # ---- path D: train_streamed end to end, card vs CPU ----------------
     t0 = time.perf_counter()
@@ -1385,7 +1537,6 @@ def main() -> int:
         raise AssertionError(f"D: micro-F1 card {micro} vs CPU {micro_cpu}")
 
     # ---- path E: LM serving, flash_attention at every prefill layer ----
-    del fused, ref, pg_b, walks, ref_walks, walk_args, rand, tail, want
     torch.cuda.empty_cache()
     flash_launches, err, fl = path_e(np, torch, lm_walks, one_rounding)
     flash_err = max(flash_err, err)
@@ -1399,14 +1550,18 @@ def main() -> int:
          "library_ms": None, "ms_layout": step["ms_layout"],
          "rows_ms": step["rows_ms"], "ms_rows_entry": step["ms_rows_entry"],
          "bound_ms_rows_entry": rows_bound[0],
-         "plain_rows_ms": step["plain_rows_ms"], "ms_old": step["ms_old"],
+         "plain_rows_ms": step["plain_rows_ms"],
          "launches_approx": step_launches["approx"],
          "unified_row_calls": rows_built},
         {"name": "node2vec_walk", "route": "cuda", "source": CU_SOURCE,
          "replaces": "src/repro/kernels/node2vec_step.py:192",
-         "launches": walk_launches, "max_abs_err": walk_err,
-         "ms": walk_ms, "plain_ms": walk_plain_ms, "bound_ms": walk_bound[0],
-         "bound_by": walk_bound[1], "library_ms": None},
+         "launches": walk["launches"], "max_abs_err": walk_err,
+         "ms": walk["ms"], "plain_ms": walk["plain_ms"],
+         "bound_ms": walk["bound"][0], "bound_by": walk["bound"][1],
+         "library_ms": None, "d_wide": wide["d"], "ms_wide": wide["ms"],
+         "plain_ms_wide": wide["plain_ms"],
+         "bound_ms_wide": wide["bound"][0],
+         "bound_by_wide": wide["bound"][1]},
         {"name": "sgns_fused", "route": "cuda", "source": SGNS_SOURCE,
          "replaces": "src/repro/kernels/sgns.py:76",
          "launches": sgns_launches, "max_abs_err": sgns_err,
@@ -1450,4 +1605,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

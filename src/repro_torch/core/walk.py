@@ -31,14 +31,23 @@ def walker_key(seed_key: torch.Tensor, walker_id: torch.Tensor,
     return jr.fold_in(jr.fold_in(seed_key, walker_id), step)
 
 
+def clamp_ids(pg: PaddedGraph, v: torch.Tensor) -> torch.Tensor:
+    """Vertex ids made safe to read with: an id past the last vertex (the
+    PAD_ID a slot past the live lanes draws) reads row n-1, as the JAX
+    package's gathers clamp. The raw id stays where JAX keeps it."""
+    return v.clamp(0, pg.n - 1)
+
+
 def unified_row(pg: PaddedGraph, v: torch.Tensor,
                 fields=("adj", "wgt", "alias_p", "alias_i")):
     """Full-width (``hot_cap``) rows of a [W] batch of vertex ids.
 
     Returns one [W, hot_cap] tensor per requested field, then ``is_hot``
     [W]. Hot vertices read the hot cache (exact, full degree); cold vertices
-    read their capped row, padded out to ``hot_cap``.
+    read their capped row, padded out to ``hot_cap``; ids outside [0, n)
+    read row n-1 (:func:`clamp_ids`).
     """
+    v = clamp_ids(pg, v)
     hpos = pg.hot_pos[v]
     is_hot = hpos >= 0
     h = torch.clamp(hpos, min=0).long()
@@ -61,18 +70,19 @@ def _first_step(pg: PaddedGraph, starts: torch.Tensor,
     the start rows (the prev rows of step 1)."""
     ids0, ap0, ai0, _ = unified_row(pg, starts, ("adj", "alias_p",
                                                  "alias_i"))
-    deg0 = pg.deg[starts]
+    deg0 = pg.deg[clamp_ids(pg, starts)]
     slot0 = first_order_slots(jr.fold_in(walker_keys, 0), ap0, ai0, deg0)
     v1 = torch.where(deg0 > 0, _gather(ids0, slot0), starts)
     return v1, ids0
 
 
 def _fused_step(pg: PaddedGraph, sampler: Sampler, keys: torch.Tensor,
-                u: torch.Tensor, v: torch.Tensor, ids, hot) -> torch.Tensor:
+                u: torch.Tensor, v: torch.Tensor, vc, ids,
+                hot) -> torch.Tensor:
     """One superstep of the fused backend: the exact draw and its next
     vertex from the ``node2vec_step`` kernel's layout entry (v's and u's
     rows read in place), then, in the approx modes, the alias draw on v's
-    full-width ids where the O(1) path is taken."""
+    full-width ids where the O(1) path is taken (``vc``: v clamped)."""
     from repro_torch.kernels.node2vec_step import node2vec_step_layout
     k_exact, k_approx = split_keys(keys)
     slot, nxt = node2vec_step_layout(pg, u, v, jr.uniform(k_exact),
@@ -80,7 +90,7 @@ def _fused_step(pg: PaddedGraph, sampler: Sampler, keys: torch.Tensor,
     choice = sampler.with_alias(slot, k_approx, hot)
     if choice.use_alias is None:
         return nxt
-    alias_nxt = torch.where(pg.deg[v] > 0, _gather(ids, choice.slot_alias),
+    alias_nxt = torch.where(pg.deg[vc] > 0, _gather(ids, choice.slot_alias),
                             v)
     return torch.where(choice.use_alias, alias_nxt, nxt)
 
@@ -109,20 +119,25 @@ def run_reference(pg: PaddedGraph, starts: torch.Tensor,
         keys = jr.fold_in(wkeys, s)
         rows = dict(zip(fields + ("is_hot",), unified_row(pg, v, fields))) \
             if fields else {}
+        # exact fused steps read no field of v here
+        vc = clamp_ids(pg, v) if approx or not sampler.fused else None
         hot = None
         if approx:
+            uc = clamp_ids(pg, u)
             hot = HotContext(
-                is_hot_v=rows["is_hot"], is_hot_u=pg.hot_pos[u] >= 0,
-                deg_u=pg.deg[u], deg_v=pg.deg[v],
-                w_min_v=pg.w_min[v], w_max_v=pg.w_max[v],
+                is_hot_v=rows["is_hot"], is_hot_u=pg.hot_pos[uc] >= 0,
+                deg_u=pg.deg[uc], deg_v=pg.deg[vc],
+                w_min_v=pg.w_min[vc], w_max_v=pg.w_max[vc],
                 alias_p=rows["alias_p"], alias_i=rows["alias_i"],
-                alias_deg=pg.deg[v])
+                alias_deg=pg.deg[vc])
         if sampler.fused:
-            nxt = _fused_step(pg, sampler, keys, u, v, rows.get("adj"), hot)
+            nxt = _fused_step(pg, sampler, keys, u, v, vc, rows.get("adj"),
+                              hot)
         else:
             ids = rows["adj"]
             choice = sampler.choose(keys, ids, rows["wgt"], u, prev, hot)
-            nxt = torch.where(pg.deg[v] > 0, _gather(ids, choice.slot()), v)
+            nxt = torch.where(pg.deg[vc] > 0, _gather(ids, choice.slot()),
+                              v)
             prev = ids
         u, v = v, nxt
         cols.append(nxt)

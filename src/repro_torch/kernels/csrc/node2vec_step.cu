@@ -21,23 +21,19 @@
 // explicit __fadd_rn / __fmul_rn (and the build passes --fmad=false), so no
 // multiply-add is ever contracted into an FMA.
 //
-// Two designs share the arithmetic.
-//
-// The live-lane draw (draw_live; the step kernels). A row's lanes past its
-// live length L hold PAD_ID and weight 0, and are never read: only L ids and
-// weights of v's row and the live prefix of u's row are. One warp per
-// walker. u's live row is first copied into shared memory with cp.async;
-// beside that copy the lanes load v's ids and weights lane-strided
+// The live-lane draw (draw_live), which all three kernels run. A row's lanes
+// past its live length L hold PAD_ID and weight 0, and are never read: only L
+// ids and weights of v's row and the live prefix of u's row are. A warp
+// serves one walker. Its lanes load v's ids and weights lane-strided
 // (coalesced), test each id's membership in u's row with branchless binary
-// searches, two (kBatch) stepped together a lane so their loads overlap,
-// and write the probabilities to a per-warp buffer of 512 lanes (skewed,
-// element i at i + i/16, so lanes reading neighbouring blocks hit
-// different banks). Lane k then owns level-0 block k (16 lanes) in
-// registers and scans it with a serial __fadd_rn chain; block totals go to
-// a per-warp level buffer whose levels are scanned by the same rule; each
-// lane adds its carry and counts.
-// Rows of more than 512 live lanes take a second pass that recomputes each
-// chunk instead of holding them. Two facts of the padded contract are kept:
+// searches, two stepped together a lane so their loads overlap, and write
+// the probabilities to a per-warp chunk buffer of up to 512 lanes (skewed,
+// element i at i + i/16, so lanes reading neighbouring blocks hit different
+// banks). Lane k then owns level-0 block k (16 lanes) in registers and scans
+// it with a serial __fadd_rn chain; block totals go to a per-warp level
+// buffer whose levels are scanned by the same rule; each lane adds its carry
+// and counts. Rows of more than 512 live lanes take a second pass that
+// recomputes each chunk instead of holding them. Two facts of the padded contract are kept:
 //   * the total is cum[D-1] of the padded row, not cum[L-1]: the zero lanes
 //     change how the last live block's carry is grouped at the upper levels
 //     (at D = 913 the two differ in about a fifth of rows), so the total is
@@ -45,22 +41,45 @@
 //     (scan_levels). The live prefixes themselves are the same at any width;
 //   * the slot is clamped to D-1, not L-1: when r * total rounds up past
 //     cum[L-1], slot == L and the padded row's id there is PAD_ID.
-// Entry points: a row entry over [W, D] candidate rows (L found on the card
-// by a warp-wide search for the first PAD_ID) and a layout entry that reads
-// v's and u's rows in place from the FN-Base / FN-Cache layout (cold rows of
-// width cap, hot rows of width hot_cap, L = min(deg, width)) and also returns
-// the next vertex.
 //
-// The padded-row draw (draw_slot; the walk kernel, and node2vec_step_padded,
-// the step kernel's first design kept as the yardstick of the live-lane
-// one). The warp writes all D lanes' probabilities into a per-warp scan
-// buffer, scans it level by level, then counts; membership is a binary search
-// in global memory.
+// The step kernels (one draw per walker, a warp each): a row entry over
+// [W, D] candidate rows (L found on the card by a warp-wide search for the
+// first PAD_ID) and a layout entry that reads v's and u's rows in place from
+// the FN-Base / FN-Cache layout (cold rows of width cap, hot rows of width
+// hot_cap, L = min(deg, width)) and also returns the next vertex. u's live
+// row is staged in shared memory with cp.async beside the loads of v's row.
 //
-// Buffers live in shared memory when they fit, else in a global scratch the
-// wrapper allocates (node2vec_scratch_floats and node2vec_live_scratch_floats
-// say how much). The kernels are bound by device-memory bytes: each live id
-// and weight of v's row and each live id of u's row is read once per draw.
+// The walk kernel (node2vec_walk_kernel): one warp a walker for all its
+// steps, L = min(deg[v], D). What it does about each cost of a step:
+//   * u's row is never read again: the draw writes v's live ids, as it
+//     loads them, into one half of a per-walker double buffer in shared
+//     memory, which is the next step's prev row (the halves swap each
+//     step), and the next vertex is read from there. Where two rows of
+//     width D and the draw's buffers do not fit the shared budget (D in
+//     the thousands), u's row is searched in place in the layout, where
+//     the step before read it, and the next vertex read from v's row;
+//   * deg[v] and the first lanes of v's row (128 for D <= 256, else 64)
+//     are loaded together (each row is D wide and PAD-padded, so the loads
+//     stay in bounds), then masked by L;
+//   * lane k loads the uniform of step s0 + k once per 32 steps and the
+//     lanes broadcast it; lane s mod 32 keeps step s's vertex, and the
+//     warp writes 32 steps in one coalesced store;
+//   * rows of D <= 256 (path B's 147) take draw_small, which is built for
+//     instruction count, the kernel's limit there (at 32 warps an SM the
+//     schedulers, not the bytes, set the pace): membership searches of
+//     fixed depth, one load, compare and predicated add a step; no masks
+//     in the scans (dead lanes hold 0); one lane scans the block totals;
+//     a 5-step search of a block's prefixes for its count. Wider rows run
+//     draw_live, its chunk buffer sized to D when D is below 512 lanes.
+// A walker whose v lies outside [0, n) (PAD_ID after a slot past the live
+// lanes) stays there and reads nothing, as the JAX package's walk does (its
+// take fills deg with INT_MIN there); a u0 outside [0, n) has no prev row.
+//
+// Level buffers live in shared memory when they fit, else in a global
+// scratch the wrapper allocates (node2vec_live_scratch_floats and
+// node2vec_walk_scratch_floats say how much). The kernels are bound by
+// device-memory bytes: each live id and weight of v's row and each live id
+// of u's row (the walk kernel: only u0's) is read once per draw.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,15 +89,14 @@ namespace {
 constexpr int kPad = 0x7fffffff;
 constexpr int kBase = 16;
 constexpr int kWarp = 32;
-constexpr int kMaxLevels = 8;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpsPerBlock = 4;
 constexpr size_t kSmemBudget = 96 * 1024;  // per block, of the 227 KB
+constexpr int kWarpsPerBlock = 4;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int skew(int i) { return i + i / kBase; }
 
-// Floats of scan buffer for a row of width d: every level stored skewed.
+// Floats of a scan buffer for d entries: every level stored skewed.
 __host__ __device__ inline int scan_floats(int d) {
   int total = 0, n = d;
   while (true) {
@@ -89,146 +107,13 @@ __host__ __device__ inline int scan_floats(int d) {
   return total;
 }
 
-// Warp-cooperative inclusive scan of buf[skew(0..d-1)] (level 0) in the
-// base-16 blocked order. Higher levels follow level 0 in buf.
-__device__ void blocked_scan(float* buf, int d, int lane) {
-  int offs[kMaxLevels], sizes[kMaxLevels];
-  int levels = 0, off = 0, n = d;
-  // up: scan inside each block, block totals into the next level
-  while (n > kBase) {
-    const int nb = cdiv(n, kBase);
-    const int next = off + (kBase + 1) * nb;
-    for (int b = lane; b < nb; b += kWarp) {
-      float acc = 0.0f;
-      const int hi = min(kBase, n - b * kBase);
-      float* blk = buf + off + b * (kBase + 1);
-      for (int j = 0; j < hi; ++j) {
-        acc = __fadd_rn(acc, blk[j]);
-        blk[j] = acc;
-      }
-      buf[next + skew(b)] = acc;
-    }
-    __syncwarp();
-    offs[levels] = off;
-    sizes[levels] = n;
-    ++levels;
-    off = next;
-    n = nb;
-  }
-  // top level (<= 16 entries): one sequential scan
-  if (lane == 0) {
-    float acc = 0.0f;
-    for (int j = 0; j < n; ++j) {
-      acc = __fadd_rn(acc, buf[off + j]);
-      buf[off + j] = acc;
-    }
-  }
-  __syncwarp();
-  // down: add each block's exclusive carry (the previous block's inclusive
-  // total, from the finished level above)
-  for (int l = levels - 1; l >= 0; --l) {
-    const int lo = offs[l], sz = sizes[l];
-    const int up = (l + 1 < levels) ? offs[l + 1] : off;
-    for (int i = lane + kBase; i < sz; i += kWarp) {
-      const int b = i / kBase;
-      buf[lo + skew(i)] = __fadd_rn(buf[lo + skew(i)], buf[up + skew(b - 1)]);
-    }
-    __syncwarp();
-  }
-}
-
-__device__ inline bool in_sorted(const int* row, int n, int x) {
-  int lo = 0, hi = n;  // lower_bound
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (row[mid] < x) lo = mid + 1; else hi = mid;
-  }
-  return row[min(lo, n - 1)] == x;
-}
-
-// One exact draw for the walker this warp serves; every lane returns the slot.
-__device__ int draw_slot(const int* cand, const float* w, int u,
-                         const int* prev, int dp, int d, float r, float p_inv,
-                         float q_inv, float* buf, int lane) {
-  for (int j = lane; j < d; j += kWarp) {
-    const int x = cand[j];
-    float prob = 0.0f;
-    if (x != kPad) {
-      const float alpha = (x == u) ? p_inv
-                          : (in_sorted(prev, dp, x) ? 1.0f : q_inv);
-      prob = __fmul_rn(alpha, w[j]);
-    }
-    buf[skew(j)] = prob;
-  }
-  __syncwarp();
-  blocked_scan(buf, d, lane);
-  const float target = __fmul_rn(r, buf[skew(d - 1)]);
-  int count = 0;
-  for (int j = lane; j < d; j += kWarp)
-    count += (cand[j] != kPad && buf[skew(j)] <= target) ? 1 : 0;
-  count = __reduce_add_sync(kFull, count);
-  __syncwarp();  // buf is reused by the next draw
-  return min(count, d - 1);
-}
-
-__global__ void node2vec_step_padded_kernel(const int* __restrict__ cand_ids,
-                                     const float* __restrict__ cand_w,
-                                     const int* __restrict__ u,
-                                     const int* __restrict__ prev_ids,
-                                     const float* __restrict__ rand,
-                                     int* __restrict__ slot, int W, int D,
-                                     int DP, float p_inv, float q_inv,
-                                     float* scratch) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int wk = blockIdx.x * kWarpsPerBlock + warp;
-  if (wk >= W) return;
-  const int per = scan_floats(D);
-  float* buf = scratch ? scratch + (size_t)wk * per : smem + warp * per;
-  const int s = draw_slot(cand_ids + (size_t)wk * D, cand_w + (size_t)wk * D,
-                          u[wk], prev_ids + (size_t)wk * DP, DP, D, rand[wk],
-                          p_inv, q_inv, buf, lane);
-  if (lane == 0) slot[wk] = s;
-}
-
-__global__ void node2vec_walk_kernel(const int* __restrict__ adj,
-                                     const float* __restrict__ wgt,
-                                     const int* __restrict__ deg,
-                                     const int* __restrict__ u0,
-                                     const int* __restrict__ v1,
-                                     const float* __restrict__ rand,
-                                     int* __restrict__ out, int W, int D,
-                                     int S, float p_inv, float q_inv,
-                                     float* scratch) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int wk = blockIdx.x * kWarpsPerBlock + warp;
-  if (wk >= W) return;
-  const int per = scan_floats(D) + D;  // scan buffer, then the prev row
-  float* buf = scratch ? scratch + (size_t)wk * per : smem + warp * per;
-  int* prev = reinterpret_cast<int*>(buf + scan_floats(D));
-  int u = u0[wk], v = v1[wk];
-  for (int j = lane; j < D; j += kWarp) prev[j] = adj[(size_t)u * D + j];
-  __syncwarp();
-  for (int s = 0; s < S; ++s) {
-    const int* cand = adj + (size_t)v * D;
-    const int slot = draw_slot(cand, wgt + (size_t)v * D, u, prev, D, D,
-                               rand[(size_t)wk * S + s], p_inv, q_inv, buf,
-                               lane);
-    const int nxt = deg[v] > 0 ? cand[slot] : v;  // dead end: stay
-    for (int j = lane; j < D; j += kWarp) prev[j] = cand[j];
-    __syncwarp();
-    if (lane == 0) out[(size_t)wk * S + s] = nxt;
-    u = v;
-    v = nxt;
-  }
-}
-
-// ------------------------------------------------------- live-lane draw --
+constexpr int kChunk = kWarp * kBase;  // lanes of v's row a pass holds
+constexpr int kChunkFloats = kChunk + kWarp;  // a chunk's buffer, skewed
+constexpr int kBatch = 2;  // candidates a lane searches together
 
 // One walker's draw: v's row (its live length lv, the padded width d that
 // fixes the total's level structure and the clamp), u and u's row (lu live
-// ids, in global memory), the uniform r and the two scalars.
+// ids), the uniform r and the two scalars.
 struct Draw {
   const int* cand;
   const float* w;
@@ -236,6 +121,13 @@ struct Draw {
   const int* prev;
   int lu;
   float r, p_inv, q_inv;
+};
+
+// The first batch of v's row, loaded before lv is known (the walk kernel).
+template <int B>
+struct Batch {
+  int x[B];
+  float w[B];
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -248,28 +140,36 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-constexpr int kChunk = kWarp * kBase;  // lanes of v's row a pass holds
-constexpr int kChunkFloats = kChunk + kWarp;  // a chunk's buffer, skewed
-constexpr int kBatch = 2;  // candidates a lane searches together
-
 // Probabilities of lanes [c0, c0 + kChunk) of v's row, live ones only, into
 // probs (chunk-relative, skewed): lane-strided, so the loads of ids and
 // weights are coalesced. Membership: kBatch branchless lower-bound searches
 // of the sorted prev row a lane, stepped together so their loads overlap.
 // wait: first wait for this lane's copy of u's row (after the first
-// batch's loads are in flight) and sync the warp.
-__device__ void chunk_probs(const Draw& dr, const int* prev, int c0,
-                            float* probs, bool wait, int lane) {
+// batch's loads are in flight) and sync the warp. keep: where v's live ids
+// are written (nullptr: nowhere). pre: the chunk's first batch, already
+// loaded (when has_pre).
+__device__ __forceinline__ void chunk_probs(const Draw& dr, const int* prev,
+                                            int c0, float* probs, bool wait,
+                                            int* keep,
+                                            const Batch<kBatch>& pre,
+                                            bool has_pre, int lane) {
   const int hi = min(dr.lv - c0, kChunk);
   for (int m0 = 0; m0 < hi; m0 += kWarp * kBatch) {
     int x[kBatch], pos[kBatch];
     float wt[kBatch];
+    const bool first = has_pre && m0 == 0;
 #pragma unroll
     for (int t = 0; t < kBatch; ++t) {
       const int i = m0 + t * kWarp + lane;
       const bool live = i < hi;
-      x[t] = live ? dr.cand[c0 + i] : kPad;
-      wt[t] = live ? dr.w[c0 + i] : 0.0f;
+      if (first) {
+        x[t] = live ? pre.x[t] : kPad;
+        wt[t] = live ? pre.w[t] : 0.0f;
+      } else {
+        x[t] = live ? dr.cand[c0 + i] : kPad;
+        wt[t] = live ? dr.w[c0 + i] : 0.0f;
+      }
+      if (keep && live) keep[c0 + i] = x[t];
       pos[t] = 0;
     }
     if (wait && m0 == 0) {
@@ -419,13 +319,16 @@ __device__ float scan_levels(float* buf, int d, int nl1, float t_last,
 }
 
 // One exact draw over the live lanes; every lane returns the slot. stage:
-// shared memory for u's live row (nullptr: search it in place); probs: this
-// warp's chunk buffer (kChunkFloats); lvl: its level buffer of
-// level_floats(d) floats. Lane k owns level-0 blocks k, k + 32, ... of each
-// chunk of kChunk lanes; the registers hold the last chunk's, so a row of
-// more than one chunk is recomputed chunk by chunk for the count.
-__device__ int draw_live(const Draw& dr, int* stage, float* probs,
-                         float* lvl, int lane) {
+// shared memory to copy u's live row into (nullptr: search dr.prev where it
+// is); probs: this warp's chunk buffer; lvl: its level buffer of
+// level_floats(d) floats; keep, pre, has_pre: as chunk_probs's. Lane k owns
+// level-0 blocks k, k + 32, ... of each chunk of kChunk lanes; the
+// registers hold the last chunk's, so a row of more than one chunk is
+// recomputed chunk by chunk for the count.
+__device__ __forceinline__ int draw_live(const Draw& dr, int* stage,
+                                         float* probs, float* lvl, int* keep,
+                                         const Batch<kBatch>& pre,
+                                         bool has_pre, int lane) {
   const int nb0 = cdiv(dr.lv, kBase);
   const int chunks = cdiv(dr.lv, kChunk);
   const int* prev = dr.prev;
@@ -436,7 +339,8 @@ __device__ int draw_live(const Draw& dr, int* stage, float* probs,
   float within[kBase];
   float t_mine = 0.0f;
   for (int c = 0; c < chunks; ++c) {
-    chunk_probs(dr, prev, c * kChunk, probs, stage && c == 0, lane);
+    chunk_probs(dr, prev, c * kChunk, probs, stage && c == 0, keep, pre,
+                has_pre && c == 0, lane);
     __syncwarp();
     const int b = c * kWarp + lane;
     if (b < nb0) {
@@ -457,7 +361,8 @@ __device__ int draw_live(const Draw& dr, int* stage, float* probs,
   int count = 0;
   for (int c = 0; c < chunks; ++c) {
     if (chunks > 1) {
-      chunk_probs(dr, prev, c * kChunk, probs, false, lane);
+      chunk_probs(dr, prev, c * kChunk, probs, false, nullptr, pre, false,
+                  lane);
       __syncwarp();
     }
     const int b = c * kWarp + lane;
@@ -494,28 +399,27 @@ __device__ int first_pad(const int* row, int d, int lane) {
   return lo;
 }
 
-// Per-warp shared memory of a live-lane launch, in 4-byte words: u's row
-// staged (stage words; 0 when it is searched in place), the chunk of
-// probabilities and the level buffer (in shared memory unless it goes to
-// global scratch).
+// ------------------------------------------------------------ step kernels --
+
+// Per-warp shared memory of a step launch, in 4-byte words: u's row staged
+// (stage words; 0 when it is searched in place), the chunk of probabilities
+// and the level buffer (in shared memory unless it goes to global scratch).
 struct LivePlan {
   int stage, levels;
   bool global_levels;
 };
 
-constexpr int kLiveWarps = 4;  // walkers per block
-
 LivePlan live_plan(int d, int dp) {
   const int lv = level_floats(d);
-  if ((size_t)kLiveWarps * 4 * (dp + kChunkFloats + lv) <= kSmemBudget)
+  if ((size_t)kWarpsPerBlock * 4 * (dp + kChunkFloats + lv) <= kSmemBudget)
     return {dp, lv, false};
-  if ((size_t)kLiveWarps * 4 * (kChunkFloats + lv) <= kSmemBudget)
+  if ((size_t)kWarpsPerBlock * 4 * (kChunkFloats + lv) <= kSmemBudget)
     return {0, lv, false};
   return {0, lv, true};
 }
 
 size_t live_smem(const LivePlan& pl) {
-  return (size_t)kLiveWarps * 4 *
+  return (size_t)kWarpsPerBlock * 4 *
          (pl.stage + kChunkFloats + (pl.global_levels ? 0 : pl.levels));
 }
 
@@ -542,7 +446,7 @@ __global__ void node2vec_step_live_kernel(
     int DP, float p_inv, float q_inv, int stage, int levels, float* scratch) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int wk = blockIdx.x * kLiveWarps + warp;
+  const int wk = blockIdx.x * kWarpsPerBlock + warp;
   if (wk >= W) return;
   int* stg;
   float *probs, *lvl;
@@ -552,7 +456,7 @@ __global__ void node2vec_step_live_kernel(
   const Draw dr{cand, cand_w + (size_t)wk * D, first_pad(cand, D, lane), D,
                 u[wk], prev, first_pad(prev, DP, lane), rand[wk], p_inv,
                 q_inv};
-  const int s = draw_live(dr, stg, probs, lvl, lane);
+  const int s = draw_live(dr, stg, probs, lvl, nullptr, {}, false, lane);
   if (lane == 0) slot[wk] = s;
 }
 
@@ -572,7 +476,7 @@ __global__ void node2vec_step_layout_kernel(
     float q_inv, int stage, int levels, float* scratch) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int wk = blockIdx.x * kLiveWarps + warp;
+  const int wk = blockIdx.x * kWarpsPerBlock + warp;
   if (wk >= W) return;
   int* stg;
   float *probs, *lvl;
@@ -591,18 +495,266 @@ __global__ void node2vec_step_layout_kernel(
   const int lu = min(du, hu >= 0 ? hot_cap : cap);
   const Draw dr{row_v, w_v, lv, hot_cap, u, row_u, lu, rand[wk], p_inv,
                 q_inv};
-  const int s = draw_live(dr, stg, probs, lvl, lane);
+  const int s = draw_live(dr, stg, probs, lvl, nullptr, {}, false, lane);
   if (lane == 0) {
     slot[wk] = s;
     nxt[wk] = dv > 0 ? (s < lv ? row_v[s] : kPad) : v_raw;
   }
 }
 
-// Shared memory a block needs, or 0 when a warp's buffer does not fit and
-// the launch must use global scratch.
-size_t smem_bytes(int per_warp_floats) {
-  const size_t bytes = (size_t)kWarpsPerBlock * per_warp_floats * 4;
-  return bytes <= kSmemBudget ? bytes : 0;
+// ------------------------------------------------------------- walk kernel --
+
+// Rows of at most kSmallRow lanes (D <= 256: one level above the 16-lane
+// blocks) take draw_small, in two halves of kHalf lanes, kSmallLanes a lane;
+// wider rows draw_live.
+constexpr int kSmallRow = kBase * kBase;
+constexpr int kHalf = kSmallRow / 2;
+constexpr int kSmallLanes = kHalf / kWarp;
+
+// Per-walker shared memory of a walk launch, in 4-byte words: the two halves
+// of the prev-row double buffer (prev words each; 0 when u's row is searched
+// in place), the chunk of probabilities and the level buffer (unless it
+// goes to global scratch). A small row's halves hold kSmallRow ids, its
+// chunk kSmallRow probabilities, and its level buffer the 16 block totals
+// (800 words: the float4 reads of the totals stay 16-byte aligned).
+struct WalkPlan {
+  int prev, probs, levels;
+  bool global_levels, small;
+};
+
+WalkPlan walk_plan(int d) {
+  if (d <= kSmallRow)
+    return {kSmallRow, kBase * (kBase + 1), kBase, false, true};
+  const int probs = cdiv(min(d, kChunk), kBase) * (kBase + 1);
+  const int lv = level_floats(d);
+  if ((size_t)kWarpsPerBlock * 4 * (2 * d + probs + lv) <= kSmemBudget)
+    return {d, probs, lv, false, false};
+  if ((size_t)kWarpsPerBlock * 4 * (probs + lv) <= kSmemBudget)
+    return {0, probs, lv, false, false};
+  return {0, probs, lv, true, false};
+}
+
+size_t walk_smem(const WalkPlan& pl) {
+  return (size_t)kWarpsPerBlock * 4 *
+         (2 * pl.prev + pl.probs + (pl.global_levels ? 0 : pl.levels));
+}
+
+// Lanes [h0, h0 + kHalf) of a small row, held kSmallLanes a lane (b, loaded
+// lane-strided; PAD_ID and weight 0 past lv after masking): v's ids into
+// next, and each probability into probs. Membership: a branchless
+// lower-bound search of prev's first 2^kDepth lanes (u's live ids, then
+// PAD_ID), the lane's searches stepped together, each step one load, one
+// compare and one predicated add to the probe's address.
+template <int kDepth>
+__device__ __forceinline__ void small_half(int h0,
+                                           const Batch<kSmallLanes>& b,
+                                           int lv, int u, const int* prev,
+                                           int* next, float* probs,
+                                           float p_inv, float q_inv,
+                                           int lane) {
+  int x[kSmallLanes];
+  const int* at[kSmallLanes];
+#pragma unroll
+  for (int k = 0; k < kSmallLanes; ++k) {
+    const int i = h0 + k * kWarp + lane;
+    x[k] = i < lv ? b.x[k] : kPad;
+    next[i] = x[k];
+    at[k] = prev;
+  }
+#pragma unroll
+  for (int h = (1 << kDepth) / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int k = 0; k < kSmallLanes; ++k)
+      if (at[k][h - 1] < x[k]) at[k] += h;
+#pragma unroll
+  for (int k = 0; k < kSmallLanes; ++k) {
+    const int i = h0 + k * kWarp + lane;
+    const float alpha = x[k] == u ? p_inv : (*at[k] == x[k] ? 1.0f : q_inv);
+    probs[skew(i)] = i < lv ? __fmul_rn(alpha, b.w[k]) : 0.0f;
+  }
+}
+
+// Both depths of the search: 7 (prev's first 128 lanes) when u's row has at
+// most 128 live lanes, else 8.
+__device__ __forceinline__ void small_half_at(int h0,
+                                              const Batch<kSmallLanes>& b,
+                                              int lv, int u, int lu,
+                                              const int* prev, int* next,
+                                              float* probs, float p_inv,
+                                              float q_inv, int lane) {
+  if (lu <= kHalf)
+    small_half<7>(h0, b, lv, u, prev, next, probs, p_inv, q_inv, lane);
+  else
+    small_half<8>(h0, b, lv, u, prev, next, probs, p_inv, q_inv, lane);
+}
+
+// One exact draw over a row of padded width D <= 256; returns the slot.
+// pre holds the row's first kHalf lanes (loaded with deg[v]); the second
+// half is read only when lv passes it. prev holds u's live ids, then PAD_ID
+// through lane 127, or through 255 when u has more than 128; next gets v's
+// the same way (the next step's prev row). Dead lanes carry probability 0
+// exactly. Lane b < ceil(lv/16) scans block b in place (its in-block
+// prefixes replace the probabilities); lane 0 scans the 16 block totals in
+// tot in order, so tot[b - 1] is block b's carry and tot[ceil(D/16) - 1]
+// the total cum[D-1] (the blocks past the live ones add 0); lane b counts
+// cum <= target by a 5-step search of its prefixes (cum does not fall
+// along a block), capped at the block's live lanes.
+__device__ __forceinline__ int draw_small(const int* row, const float* wrow,
+                                          int lv, int D, int u, int lu,
+                                          const int* prev, int* next,
+                                          float* probs, float* tot, float r,
+                                          float p_inv, float q_inv,
+                                          const Batch<kSmallLanes>& pre,
+                                          int lane) {
+  small_half_at(0, pre, lv, u, lu, prev, next, probs, p_inv, q_inv, lane);
+  if (lv > kHalf) {  // the same for every lane
+    Batch<kSmallLanes> b;
+    const int* xs = row + kHalf + lane;
+    const float* ws = wrow + kHalf + lane;
+#pragma unroll
+    for (int k = 0; k < kSmallLanes; ++k) {
+      const bool in = kHalf + k * kWarp + lane < lv;
+      b.x[k] = in ? xs[k * kWarp] : kPad;
+      b.w[k] = in ? ws[k * kWarp] : 0.0f;
+    }
+    small_half_at(kHalf, b, lv, u, lu, prev, next, probs, p_inv, q_inv,
+                  lane);
+  }
+  __syncwarp();
+  const bool live = lane < cdiv(lv, kBase);  // lane b owns block b
+  float* blk = probs + lane * (kBase + 1);   // skew(16 b + j), j < 16
+  float t = 0.0f;
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < kBase; ++j) {
+      t = __fadd_rn(t, blk[j]);
+      blk[j] = t;
+    }
+  }
+  if (lane < kBase) tot[lane] = t;
+  __syncwarp();
+  if (lane == 0) {  // level 1: the block totals scanned in order
+    float run = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kBase / 4; ++q) {
+      float4 t4 = reinterpret_cast<float4*>(tot)[q];
+      t4.x = run = __fadd_rn(run, t4.x);
+      t4.y = run = __fadd_rn(run, t4.y);
+      t4.z = run = __fadd_rn(run, t4.z);
+      t4.w = run = __fadd_rn(run, t4.w);
+      reinterpret_cast<float4*>(tot)[q] = t4;
+    }
+  }
+  __syncwarp();
+  const float carry = lane > 0 && lane <= kBase ? tot[lane - 1] : 0.0f;
+  const float target = __fmul_rn(r, tot[cdiv(D, kBase) - 1]);  // cum[D-1]
+  int count = 0;
+  if (live) {
+    const float* c = blk;  // at blk[count]: the first prefix > target
+#pragma unroll
+    for (int h = kBase / 2; h > 0; h >>= 1)
+      if (__fadd_rn(c[h - 1], carry) <= target) {
+        c += h;
+        count += h;
+      }
+    if (__fadd_rn(*c, carry) <= target) ++count;
+    count = min(count, lv - lane * kBase);
+  }
+  count = __reduce_add_sync(kFull, count);
+  __syncwarp();  // tot and probs are rewritten by the next draw
+  return min(count, D - 1);
+}
+
+// adj/wgt [n, D] (row v: its min(deg[v], D) live ids sorted, then PAD_ID
+// and weight 0), deg [n], u0/v1 [W], rand [W, S] -> out [W, S]. kSmall:
+// D <= 256 (draw_small), else draw_live. The small kernel is held to 64
+// registers (8 blocks, 32 warps an SM), where it runs fastest.
+template <bool kSmall>
+__global__ void __launch_bounds__(kWarpsPerBlock* kWarp, kSmall ? 8 : 1)
+    node2vec_walk_kernel(const int* __restrict__ adj,
+                         const float* __restrict__ wgt,
+                         const int* __restrict__ deg, int n,
+                         const int* __restrict__ u0,
+                         const int* __restrict__ v1,
+                         const float* __restrict__ rand,
+                         int* __restrict__ out, int W, int D, int S,
+                         float p_inv, float q_inv, WalkPlan pl,
+                         float* scratch) {
+  // lanes of v's row loaded with deg[v]: a small row's first half, else
+  // draw_live's first batch
+  constexpr int B = kSmall ? kSmallLanes : kBatch;
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int wk = blockIdx.x * kWarpsPerBlock + warp;
+  if (wk >= W) return;
+  const int per = 2 * pl.prev + pl.probs + (pl.global_levels ? 0 : pl.levels);
+  int* prev = reinterpret_cast<int*>(smem + warp * per);
+  int* next = prev + pl.prev;
+  float* probs = smem + warp * per + 2 * pl.prev;
+  float* lvl = pl.global_levels ? scratch + (size_t)wk * pl.levels
+                                : probs + pl.probs;
+  int u = u0[wk], v = v1[wk];
+  int lu = (unsigned)u < (unsigned)n ? min(max(deg[u], 0), D) : 0;
+  if (pl.prev) {  // u0's live row (a small row PAD-filled to 256)
+    for (int j = lane; j < (kSmall ? kSmallRow : lu); j += kWarp)
+      prev[j] = j < lu ? adj[(size_t)u * D + j] : kPad;
+    __syncwarp();
+  }
+  const size_t base = (size_t)wk * S;
+  for (int s0 = 0; s0 < S; s0 += kWarp) {
+    const float r_mine = s0 + lane < S ? rand[base + s0 + lane] : 0.0f;
+    const int steps = min(kWarp, S - s0);
+    int keep = 0;
+    for (int j = 0; j < steps; ++j) {
+      const float r = __shfl_sync(kFull, r_mine, j);
+      int nxt = v, lv = 0;
+      if ((unsigned)v < (unsigned)n) {
+        const int* row = adj + (size_t)v * D;
+        const float* wrow = wgt + (size_t)v * D;
+        const int dv = deg[v];
+        Batch<B> pre;
+        const int* xs = row + lane;
+        const float* ws = wrow + lane;
+        if (D >= B * kWarp) {  // every lane in the row: no masks (path B)
+#pragma unroll
+          for (int t = 0; t < B; ++t) {
+            pre.x[t] = xs[t * kWarp];
+            pre.w[t] = ws[t * kWarp];
+          }
+        } else {
+#pragma unroll
+          for (int t = 0; t < B; ++t) {
+            const bool in = t * kWarp + lane < D;
+            pre.x[t] = in ? xs[t * kWarp] : kPad;
+            pre.w[t] = in ? ws[t * kWarp] : 0.0f;
+          }
+        }
+        lv = min(max(dv, 0), D);
+        if (lv > 0) {  // else a dead end: stay (and never draw again)
+          int slot;
+          if constexpr (kSmall) {
+            slot = draw_small(row, wrow, lv, D, u, lu, prev, next, probs,
+                              probs + pl.probs, r, p_inv, q_inv, pre, lane);
+          } else {
+            const int* prev_row =
+                pl.prev ? prev : adj + (size_t)min(max(u, 0), n - 1) * D;
+            const Draw dr{row, wrow, lv, D, u, prev_row, lu, r, p_inv, q_inv};
+            slot = draw_live(dr, nullptr, probs, lvl,
+                             pl.prev ? next : nullptr, pre, true, lane);
+          }
+          nxt = slot < lv ? (pl.prev ? next[slot] : row[slot]) : kPad;
+        }
+      }
+      if (lane == j) keep = nxt;
+      u = v;
+      v = nxt;
+      lu = lv;
+      int* done = prev;  // v's live ids become the next step's prev row
+      prev = next;
+      next = done;
+    }
+    if (s0 + lane < S) out[base + s0 + lane] = keep;
+  }
 }
 
 template <typename Kernel>
@@ -617,30 +769,6 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 }  // namespace
 
 extern "C" {
-
-// Floats of global scratch per walker the kernel needs, 0 when it works in
-// shared memory. with_prev: 1 for node2vec_walk (the prev row rides along).
-int node2vec_scratch_floats(int d, int with_prev) {
-  const int per = scan_floats(d) + (with_prev ? d : 0);
-  return smem_bytes(per) ? 0 : per;
-}
-
-int node2vec_step_padded_launch(const int* cand_ids, const float* cand_w,
-                                const int* u, const int* prev_ids,
-                                const float* rand, int* slot, int W, int D,
-                                int DP, float p_inv, float q_inv,
-                                float* scratch, cudaStream_t stream) {
-  const size_t smem = scratch ? 0 : smem_bytes(scan_floats(D));
-  if (!scratch && smem == 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare(node2vec_step_padded_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = cdiv(W, kWarpsPerBlock);
-  node2vec_step_padded_kernel<<<blocks, kWarpsPerBlock * kWarp, smem,
-                                stream>>>(cand_ids, cand_w, u, prev_ids, rand,
-                                          slot, W, D, DP, p_inv, q_inv,
-                                          scratch);
-  return (int)cudaGetLastError();
-}
 
 // Floats of global scratch per walker a live-lane draw of padded width d
 // (prev rows of width dp) needs, 0 when its buffers fit in shared memory.
@@ -660,10 +788,11 @@ int node2vec_step_live_launch(const int* cand_ids, const float* cand_w,
   const size_t smem = live_smem(pl);
   cudaError_t err = prepare(node2vec_step_live_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  node2vec_step_live_kernel<<<cdiv(W, kLiveWarps), kLiveWarps * kWarp, smem,
-                              stream>>>(cand_ids, cand_w, u, prev_ids, rand,
-                                        slot, W, D, DP, p_inv, q_inv,
-                                        pl.stage, pl.levels, scratch);
+  node2vec_step_live_kernel<<<cdiv(W, kWarpsPerBlock), kWarpsPerBlock * kWarp,
+                              smem, stream>>>(cand_ids, cand_w, u, prev_ids,
+                                              rand, slot, W, D, DP, p_inv,
+                                              q_inv, pl.stage, pl.levels,
+                                              scratch);
   return (int)cudaGetLastError();
 }
 
@@ -680,24 +809,36 @@ int node2vec_step_layout_launch(const int* adj, const float* wgt, int cap,
   const size_t smem = live_smem(pl);
   cudaError_t err = prepare(node2vec_step_layout_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  node2vec_step_layout_kernel<<<cdiv(W, kLiveWarps), kLiveWarps * kWarp,
-                                smem, stream>>>(
+  node2vec_step_layout_kernel<<<cdiv(W, kWarpsPerBlock),
+                                kWarpsPerBlock * kWarp, smem, stream>>>(
       adj, wgt, cap, hot_adj, hot_wgt, hot_cap, hot_pos, deg, n, u, v, rand,
       slot, nxt, W, p_inv, q_inv, pl.stage, pl.levels, scratch);
   return (int)cudaGetLastError();
 }
 
+// Floats of global scratch per walker the walk kernel at row width d
+// needs, 0 when its buffers fit in shared memory.
+int node2vec_walk_scratch_floats(int d) {
+  const WalkPlan pl = walk_plan(d);
+  return pl.global_levels ? pl.levels : 0;
+}
+
 int node2vec_walk_launch(const int* adj, const float* wgt, const int* deg,
-                         const int* u0, const int* v1, const float* rand,
-                         int* out, int W, int D, int S, float p_inv,
-                         float q_inv, float* scratch, cudaStream_t stream) {
-  const size_t smem = scratch ? 0 : smem_bytes(scan_floats(D) + D);
-  if (!scratch && smem == 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare(node2vec_walk_kernel, smem);
+                         int n, const int* u0, const int* v1,
+                         const float* rand, int* out, int W, int D, int S,
+                         float p_inv, float q_inv, float* scratch,
+                         cudaStream_t stream) {
+  const WalkPlan pl = walk_plan(D);
+  if (pl.global_levels != (scratch != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = walk_smem(pl);
+  auto kernel = pl.small ? node2vec_walk_kernel<true>
+                         : node2vec_walk_kernel<false>;
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = cdiv(W, kWarpsPerBlock);
-  node2vec_walk_kernel<<<blocks, kWarpsPerBlock * kWarp, smem, stream>>>(
-      adj, wgt, deg, u0, v1, rand, out, W, D, S, p_inv, q_inv, scratch);
+  kernel<<<cdiv(W, kWarpsPerBlock), kWarpsPerBlock * kWarp, smem, stream>>>(
+      adj, wgt, deg, n, u0, v1, rand, out, W, D, S, p_inv, q_inv, pl,
+      scratch);
   return (int)cudaGetLastError();
 }
 

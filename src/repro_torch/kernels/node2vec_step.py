@@ -11,15 +11,15 @@
   and the next vertex. Its launches count in ``node2vec_step.launches``.
 * :func:`node2vec_walk` replaces ``repro.kernels.node2vec_step.
   node2vec_walk``: steps 1..L-1 of an exact walk on the FN-Base layout in
-  one launch, each walker's prev row kept on chip between steps.
-* :func:`node2vec_step_padded` is the step kernel's first design (every
-  lane of the padded rows scanned, membership searched in device memory),
-  on no path: ``chip_smoke.py`` times it beside the live-lane kernel.
+  one launch, by the same live-lane draw (rows of D <= 256 by a variant
+  built for fewer instructions), each walker's prev row kept in shared
+  memory between steps, a warp a walker. A walker whose vertex is outside
+  [0, n) (``PAD_ID`` after a slot past the live lanes) stays there.
 
-All take the unpadded contract (no 128-lane or block-multiple padding) and
-are bound by device-memory bytes. A CUDA tensor launches the kernel, a CPU
-tensor runs the plain version beside it (``*_plain``), anything else raises.
-Each wrapper counts its launches in ``<wrapper>.launches``.
+All take the unpadded contract (no 128-lane or block-multiple padding). A
+CUDA tensor launches the kernel, a CPU tensor runs the plain version beside
+it (``*_plain``), anything else raises. Each wrapper counts its launches in
+``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.core.graph import PAD_ID
 from repro_torch.engine.sampler import exact_slots
 
 _P = ctypes.c_void_p
@@ -39,21 +40,19 @@ def _lib():
     from repro_torch.kernels import build
     lib = build.load("node2vec_step")
     if not getattr(lib, "_typed", False):
-        lib.node2vec_scratch_floats.argtypes = [_I, _I]
-        lib.node2vec_scratch_floats.restype = _I
         lib.node2vec_live_scratch_floats.argtypes = [_I, _I]
         lib.node2vec_live_scratch_floats.restype = _I
-        for name in ("node2vec_step_padded_launch",
-                     "node2vec_step_live_launch"):
-            fn = getattr(lib, name)
-            fn.argtypes = [_P] * 6 + [_I] * 3 + [_F, _F, _P, _P]
-            fn.restype = _I
+        lib.node2vec_walk_scratch_floats.argtypes = [_I]
+        lib.node2vec_walk_scratch_floats.restype = _I
+        lib.node2vec_step_live_launch.argtypes = [_P] * 6 + [_I] * 3 + \
+            [_F, _F, _P, _P]
+        lib.node2vec_step_live_launch.restype = _I
         lib.node2vec_step_layout_launch.argtypes = \
             [_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F,
              _F, _P, _P]
         lib.node2vec_step_layout_launch.restype = _I
-        lib.node2vec_walk_launch.argtypes = [_P] * 7 + [_I] * 3 + \
-            [_F, _F, _P, _P]
+        lib.node2vec_walk_launch.argtypes = [_P] * 3 + [_I] + [_P] * 4 + \
+            [_I] * 3 + [_F, _F, _P, _P]
         lib.node2vec_walk_launch.restype = _I
         lib._typed = True
     return lib
@@ -95,11 +94,15 @@ def node2vec_step_plain(cand_ids, cand_w, u, prev_ids, rand, p: float,
     return exact_slots(cand_ids, cand_w, u, prev_ids, rand, p, q)
 
 
-def _step_rows(entry: str, counter, cand_ids, cand_w, u, prev_ids, rand,
-               p: float, q: float) -> torch.Tensor:
-    """A row-contract step kernel (``entry``: "live" or "padded"): the
-    checks, the plain version on the CPU, else one launch counted in
-    ``counter.launches``."""
+def node2vec_step(cand_ids: torch.Tensor, cand_w: torch.Tensor,
+                  u: torch.Tensor, prev_ids: torch.Tensor,
+                  rand: torch.Tensor, p: float, q: float) -> torch.Tensor:
+    """Exact second-order draw per walker.
+
+    cand_ids [W, D] int32 (sorted, PAD_ID padded), cand_w [W, D] float32,
+    u [W] int32, prev_ids [W, DP] int32 (sorted N(u), PAD_ID padded),
+    rand [W] float32. Returns slot [W] int32.
+    """
     from repro_torch.kernels import build
     w, d = cand_ids.shape
     dp = prev_ids.shape[1]
@@ -119,56 +122,30 @@ def _step_rows(entry: str, counter, cand_ids, cand_w, u, prev_ids, rand,
     if w == 0:
         return slot
     lib = _lib()
-    per = lib.node2vec_scratch_floats(d, 0) if entry == "padded" else \
-        lib.node2vec_live_scratch_floats(d, dp)
-    scratch, sptr, stream = _launch_args(dev, w, per)
-    build.check(getattr(lib, f"node2vec_step_{entry}_launch")(
+    scratch, sptr, stream = _launch_args(
+        dev, w, lib.node2vec_live_scratch_floats(d, dp))
+    build.check(lib.node2vec_step_live_launch(
         cand_ids.data_ptr(), cand_w.data_ptr(), u.data_ptr(),
         prev_ids.data_ptr(), rand.data_ptr(), slot.data_ptr(), w, d, dp,
-        _inv(p), _inv(q), sptr, stream), f"node2vec_step ({entry})")
-    counter.launches += 1
+        _inv(p), _inv(q), sptr, stream), "node2vec_step")
+    node2vec_step.launches += 1
     return slot
-
-
-def node2vec_step(cand_ids: torch.Tensor, cand_w: torch.Tensor,
-                  u: torch.Tensor, prev_ids: torch.Tensor,
-                  rand: torch.Tensor, p: float, q: float) -> torch.Tensor:
-    """Exact second-order draw per walker.
-
-    cand_ids [W, D] int32 (sorted, PAD_ID padded), cand_w [W, D] float32,
-    u [W] int32, prev_ids [W, DP] int32 (sorted N(u), PAD_ID padded),
-    rand [W] float32. Returns slot [W] int32.
-    """
-    return _step_rows("live", node2vec_step, cand_ids, cand_w, u, prev_ids,
-                      rand, p, q)
 
 
 node2vec_step.launches = 0
 
 
-def node2vec_step_padded(cand_ids: torch.Tensor, cand_w: torch.Tensor,
-                         u: torch.Tensor, prev_ids: torch.Tensor,
-                         rand: torch.Tensor, p: float, q: float
-                         ) -> torch.Tensor:
-    """:func:`node2vec_step` by the step kernel's first design, which scans
-    every lane of the padded rows (the live-lane kernel's yardstick)."""
-    return _step_rows("padded", node2vec_step_padded, cand_ids, cand_w, u,
-                      prev_ids, rand, p, q)
-
-
-node2vec_step_padded.launches = 0
-
-
 def node2vec_step_layout_plain(pg, u: torch.Tensor, v: torch.Tensor,
                                rand: torch.Tensor, p: float, q: float):
     """Plain PyTorch version of the layout entry: the engine's full-width
-    rows (``unified_row``), then :func:`exact_slots`, then the gather."""
-    from repro_torch.core.walk import unified_row
+    rows (``unified_row``), then :func:`exact_slots`, then the gather; ids
+    outside [0, n) read row n-1, as the kernel does."""
+    from repro_torch.core.walk import clamp_ids, unified_row
     cand, w, _ = unified_row(pg, v, ("adj", "wgt"))
     prev, _ = unified_row(pg, u, ("adj",))
     slot = exact_slots(cand, w, u, prev, rand, p, q)
     nxt = torch.gather(cand, 1, slot.long()[:, None])[:, 0]
-    return slot, torch.where(pg.deg[v] > 0, nxt, v)
+    return slot, torch.where(pg.deg[clamp_ids(pg, v)] > 0, nxt, v)
 
 
 def node2vec_step_layout(pg, u: torch.Tensor, v: torch.Tensor,
@@ -213,15 +190,25 @@ def node2vec_step_layout(pg, u: torch.Tensor, v: torch.Tensor,
 def node2vec_walk_plain(adj, wgt, deg, u0, v1, rand, p: float,
                         q: float) -> torch.Tensor:
     """Plain PyTorch version of the walk kernel: the same draws, one
-    superstep at a time."""
+    superstep at a time. A v outside [0, n) (PAD_ID after a slot past the
+    live lanes) stays there, as the JAX package's walk keeps it (its
+    ``take`` fills deg with INT_MIN); a u0 outside [0, n) has no prev row."""
+    n = adj.shape[0]
+
+    def rows_of(x):
+        inside = (x >= 0) & (x < n)
+        at = x.clamp(0, n - 1).long()
+        return adj[at], wgt[at], torch.where(inside, deg[at], 0)
+
     u, v = u0, v1
-    prev = adj[u0.long()]
+    prev = torch.where(((u0 >= 0) & (u0 < n))[:, None], rows_of(u0)[0],
+                       PAD_ID)
     cols = []
     for s in range(rand.shape[1]):
-        cand, w = adj[v.long()], wgt[v.long()]
+        cand, w, dv = rows_of(v)
         slot = exact_slots(cand, w, u, prev, rand[:, s].contiguous(), p, q)
         nxt = torch.gather(cand, 1, slot.long()[:, None])[:, 0]
-        nxt = torch.where(deg[v.long()] > 0, nxt, v)   # dead end: stay
+        nxt = torch.where(dv > 0, nxt, v)   # a dead end or no row: stay
         u, v, prev = v, nxt, cand
         cols.append(nxt)
     if not cols:
@@ -235,9 +222,10 @@ def node2vec_walk(adj: torch.Tensor, wgt: torch.Tensor, deg: torch.Tensor,
                   p: float, q: float) -> torch.Tensor:
     """Steps 1..L-1 of an exact walk on the FN-Base layout.
 
-    adj [n, D] int32, wgt [n, D] float32, deg [n] int32, u0/v1 [W] int32
-    (start vertex, step-0 result), rand [W, L-1] float32 uniforms.
-    Returns [W, L-1] int32 sampled vertices.
+    adj [n, D] int32 (row v: its min(deg[v], D) neighbours sorted, then
+    PAD_ID), wgt [n, D] float32 (0 past the live lanes), deg [n] int32,
+    u0/v1 [W] int32 (start vertex, step-0 result), rand [W, L-1] float32
+    uniforms. Returns [W, L-1] int32 sampled vertices.
     """
     n, d = adj.shape
     w, steps = rand.shape
@@ -258,10 +246,11 @@ def node2vec_walk(adj: torch.Tensor, wgt: torch.Tensor, deg: torch.Tensor,
     out = torch.empty((w, steps), dtype=torch.int32, device=dev)
     if w == 0 or steps == 0:
         return out
+    lib = _lib()
     scratch, sptr, stream = _launch_args(
-        dev, w, _lib().node2vec_scratch_floats(d, 1))
-    build.check(_lib().node2vec_walk_launch(
-        adj.data_ptr(), wgt.data_ptr(), deg.data_ptr(), u0.data_ptr(),
+        dev, w, lib.node2vec_walk_scratch_floats(d))
+    build.check(lib.node2vec_walk_launch(
+        adj.data_ptr(), wgt.data_ptr(), deg.data_ptr(), n, u0.data_ptr(),
         v1.data_ptr(), rand.data_ptr(), out.data_ptr(), w, d, steps,
         _inv(p), _inv(q), sptr, stream), "node2vec_walk")
     node2vec_walk.launches += 1

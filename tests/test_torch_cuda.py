@@ -37,8 +37,8 @@ pytestmark = pytest.mark.cuda
 
 
 def _load_smoke():
-    """chip_smoke.py, whose edge-case inputs of the step kernel these tests
-    share (it imports only the standard library at module level)."""
+    """chip_smoke.py, whose edge-case inputs of the walk kernels these
+    tests share (it imports only the standard library at module level)."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     mod = importlib.util.module_from_spec(spec)
@@ -93,10 +93,9 @@ EDGE_WIDTHS = list(SMOKE.STEP_EDGE_WIDTHS)
 
 @pytest.mark.parametrize("d", EDGE_WIDTHS)
 def test_step_row_entry_matches_plain_at_edges(cuda, d):
-    """The live-lane kernel (and the padded-row one it replaces) equal the
-    plain version at every width, with v's and u's live lengths at block
-    and level edges and rand near 1; 20,000 puts the level buffer in
-    global scratch and searches u's row in place."""
+    """The live-lane kernel equals the plain version at every width, with
+    v's and u's live lengths at block and level edges and rand near 1;
+    20,000 searches u's row in place."""
     rng = np.random.default_rng(d)
     w = 3 * len(SMOKE.edge_lives(d))
     cand, live = SMOKE.edge_rows(np, rng, w, d, PAD_ID)
@@ -113,9 +112,7 @@ def test_step_row_entry_matches_plain_at_edges(cuda, d):
     before = K.node2vec_step.launches
     got = K.node2vec_step(*args, 0.5, 2.0)
     assert K.node2vec_step.launches == before + 1
-    want = K.node2vec_step_plain(*args, 0.5, 2.0)
-    assert torch.equal(got, want)
-    assert torch.equal(K.node2vec_step_padded(*args, 0.5, 2.0), want)
+    assert torch.equal(got, K.node2vec_step_plain(*args, 0.5, 2.0))
 
 
 @pytest.mark.parametrize("d", EDGE_WIDTHS)
@@ -146,9 +143,9 @@ def test_step_layout_entry_matches_plain_and_row_entry(cuda, d):
     assert torch.equal(K.node2vec_step(cand, cw, u, prev, r, 0.5, 2.0), slot)
 
 
-@pytest.mark.parametrize("n,d,w,steps", [(64, 1, 7, 5), (2048, 147, 4096, 9),
-                                         (30000, 12000, 8, 3)])
-def test_walk_kernel_matches_plain(cuda, n, d, w, steps):
+def _walk_random(n, d, w, steps):
+    """A padded random graph of n vertices (degrees uniform in 0..d) and w
+    walkers on it."""
     rng = np.random.default_rng(n)
     deg = rng.integers(0, d + 1, n)
     lane = np.arange(d)[None, :]
@@ -156,15 +153,41 @@ def test_walk_kernel_matches_plain(cuda, n, d, w, steps):
     adj = np.where(lane < deg[:, None], adj, PAD_ID).astype(np.int32)
     wgt = np.where(lane < deg[:, None], rng.random((n, d)) + 0.1,
                    0.0).astype(np.float32)
-    args = [torch.from_numpy(a).to(cuda) for a in (
-        adj, wgt, deg.astype(np.int32),
-        rng.integers(0, n, w).astype(np.int32),
-        rng.integers(0, n, w).astype(np.int32),
-        rng.random((w, steps)).astype(np.float32))]
-    before = K.node2vec_walk.launches
-    got = K.node2vec_walk(*args, 0.5, 2.0)
-    assert K.node2vec_walk.launches == before + 1
-    assert torch.equal(got, K.node2vec_walk_plain(*args, 0.5, 2.0))
+    return (adj, wgt, deg.astype(np.int32),
+            rng.integers(0, n, w).astype(np.int32),
+            rng.integers(0, n, w).astype(np.int32),
+            rng.random((w, steps)).astype(np.float32))
+
+
+WALK_RANDOM = [(64, 1, 7, 5), (2048, 147, 4096, 9), (30000, 12000, 8, 3)]
+
+
+@pytest.mark.parametrize(
+    "case", WALK_RANDOM + list(SMOKE.WALK_EDGE_WIDTHS) + ["hub"],
+    ids=lambda c: "-".join(map(str, c)) if isinstance(c, tuple) else str(c))
+def test_walk_kernel_matches_plain(cuda, case):
+    """The walk kernel equals the plain version on random graphs (n, D, W,
+    steps), and at the edge widths with live lengths at block and level
+    edges, dead ends, rand at 0 and 1 - 2^-24, W = 4k + 3 and 37 steps, a
+    walker from PAD_ID and one whose u0 is past n; 12,000 and 20,000
+    search u's row in place. "hub": the walkers that draw PAD_ID at the
+    hub stay there."""
+    if isinstance(case, tuple):
+        arrays = _walk_random(*case)
+    elif case == "hub":
+        arrays = SMOKE.pad_hub(np, torch)
+    else:
+        arrays = SMOKE.walk_edge_inputs(np, np.random.default_rng(case),
+                                        case, PAD_ID)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    for p, q in [(0.5, 2.0), (1.0, 1.0)]:
+        before = K.node2vec_walk.launches
+        got = K.node2vec_walk(*args, p, q)
+        assert K.node2vec_walk.launches == before + 1
+        want = K.node2vec_walk_plain(*args, p, q)
+        assert torch.equal(got, want)
+        if case == "hub" and p == 1.0:
+            assert bool((got[:3] == PAD_ID).all())
 
 
 @pytest.mark.parametrize("mode,cap,pipeline", [("exact", 24, False),

@@ -112,6 +112,33 @@ def test_walks_over_carried_layout_match_jax():
     assert np.array_equal(walks.numpy(), want)
 
 
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+def test_reference_backend_reads_clamped_rows(mode, backend):
+    """Walkers starting at PAD_ID, n or n + 5 read row n - 1 for every
+    field (deg, the hot position, the alias and weight rows), as the JAX
+    package's clamped gathers do, and so walk on from a neighbour of n - 1;
+    the JAX package's run_reference gives the same walks. FN-Cache layout,
+    so the hot cache is read too."""
+    from repro.core.walk import run_reference as jax_run_reference
+    kw = dict(p=0.5, q=2.0, length=6, mode=mode, approx_eps=5e-2, cap=24)
+    jpg = JaxPaddedGraph.build(jax_open_graph(SKEW).graph, cap=24)
+    pg = padded_graph_from_numpy({f: np.asarray(getattr(jpg, f))
+                                  for f in FIELDS}, jpg.n, jpg.cap,
+                                 jpg.hot_cap, device="cpu")
+    n = pg.n
+    starts = np.array([2147483647, n, n + 5, 0, 7, n - 1], np.int32)
+    wid = np.arange(len(starts), dtype=np.int32)
+    want = np.asarray(jax_run_reference(
+        jpg, jax.numpy.asarray(starts), jax.numpy.asarray(wid),
+        jax.random.PRNGKey(4), JaxPlan(**kw).sampler(), 6))
+    key = key_from_numpy(np.asarray(jax.random.PRNGKey(4)))
+    got = run_reference(pg, torch.from_numpy(starts), torch.from_numpy(
+        wid).long(), key, WalkPlan(backend=backend, **kw).sampler(), 6)
+    assert np.array_equal(got.numpy(), want)
+    assert (want[:3] < n).all()
+
+
 def test_sharded_backend_not_ported():
     with pytest.raises(NotImplementedError, match="Multi-device"):
         WalkPlan(backend="sharded")

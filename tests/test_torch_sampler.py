@@ -107,10 +107,13 @@ def test_step_plain_matches_pallas_interpret(w, d, dp):
     assert np.array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("n,d,w,steps", [(64, 5, 9, 6), (200, 37, 33, 4)])
+@pytest.mark.parametrize("n,d,w,steps", [(64, 5, 9, 6), (200, 37, 33, 4),
+                                         (600, 256, 9, 3), (800, 384, 9, 3)])
 def test_walk_plain_matches_pallas_walk(n, d, w, steps):
     """node2vec_walk's plain version equals the Pallas whole-walk kernel
-    (interpret mode), dead ends included."""
+    (interpret mode), dead ends included, at widths where the op's padding
+    to 128 lanes leaves the scan's total unchanged (D <= 256, or a multiple
+    of 128)."""
     rng = np.random.default_rng(n + d)
     adj, wgt, deg = _walk_graph(rng, n, d)
     u0 = rng.integers(0, n, w).astype(np.int32)
@@ -353,6 +356,91 @@ def test_emulated_live_draw_matches_exact_slots(d):
     assert np.array_equal(got, want)
 
 
+def _emulated_small_draw(cand, w, u, prev, r, p, q):
+    """The walk kernel's draw over rows of width D <= 256 (draw_small), as
+    it computes it: membership by a fixed-depth search of u's row padded
+    with PAD_ID (depth 7 over 128 lanes when u has at most 128 live ones,
+    else 8 over 256), probabilities 0 past the live lanes, the blocks'
+    totals scanned in order, total = the last padded block's total + the
+    level-1 prefix before it, and each block's count of cum <= target (a
+    5-step search of its prefixes) capped at its live lanes."""
+    rows, d = cand.shape
+    live = (cand != PAD_ID).sum(1)
+    p_inv, q_inv = np.float32(1.0 / p), np.float32(1.0 / q)
+    row = np.full((rows, 256), PAD_ID, np.int64)
+    row[:, :prev.shape[1]] = prev
+    x = np.full((rows, 256), PAD_ID, np.int64)
+    x[:, :d] = cand
+    pos = np.zeros((rows, 256), np.int64)
+    deep = (prev != PAD_ID).sum(1) > 128
+    for h in (128, 64, 32, 16, 8, 4, 2, 1):
+        at = np.take_along_axis(row, pos + h - 1, axis=1)
+        pos += np.where((at < x) & (deep[:, None] | (h < 128)), h, 0)
+    member = np.take_along_axis(row, pos, axis=1) == x
+    alpha = np.where(x == u[:, None], p_inv,
+                     np.where(member, np.float32(1.0), q_inv))
+    wt = np.zeros((rows, 256), np.float32)
+    wt[:, :d] = w
+    lane = np.arange(256)[None, :]
+    probs = np.where(lane < live[:, None], alpha.astype(np.float32) * wt,
+                     np.float32(0.0)).reshape(rows, 16, 16)
+    within = np.zeros_like(probs)
+    acc = np.zeros((rows, 16), np.float32)
+    for j in range(16):
+        acc = acc + probs[:, :, j]
+        within[:, :, j] = acc
+    t = within[:, :, 15]
+    incl = np.zeros((rows, 16), np.float32)
+    run = np.zeros(rows, np.float32)
+    for b in range(16):
+        run = run + t[:, b]
+        incl[:, b] = run
+    n1 = -(-d // 16)
+    total = t[:, n1 - 1] + incl[:, n1 - 2] if n1 > 1 else t[:, 0]
+    target = (r * total).astype(np.float32)
+    carry = np.concatenate([np.zeros((rows, 1), np.float32), incl[:, :-1]],
+                           axis=1)
+    cum = within + carry[:, :, None]
+    count = np.zeros((rows, 16), np.int64)
+    for h in (8, 4, 2, 1):
+        at = np.take_along_axis(cum, (count + h - 1)[:, :, None], 2)[:, :, 0]
+        count += np.where(at <= target[:, None], h, 0)
+    at = np.take_along_axis(cum, count[:, :, None], 2)[:, :, 0]
+    count += at <= target[:, None]
+    cap = np.maximum(live[:, None] - 16 * np.arange(16)[None, :], 0)
+    return np.minimum(np.minimum(count, cap).sum(1), d - 1)
+
+
+@pytest.mark.parametrize("d", [1, 16, 17, 100, 147, 255, 256])
+def test_emulated_small_draw_matches_exact_slots(d):
+    """The walk kernel's draw over rows of at most 256 lanes draws
+    exact_slots' slots, with live lengths at block edges and rand at 0 and
+    near 1."""
+    rng = np.random.default_rng(d + 11)
+    edges = sorted({x for x in (0, 1, 2, 15, 16, 17, 31, 32, 33, 100, 240,
+                                241, d // 2, d - 1, d) if 0 <= x <= d})
+    live = np.array(edges * 6)
+    rows = len(live)
+    cand = np.sort(rng.integers(0, 1 << 20, (rows, d)), axis=1) + np.arange(d)
+    lane = np.arange(d)[None, :]
+    cand = np.where(lane < live[:, None], cand, PAD_ID).astype(np.int32)
+    w = np.where(lane < live[:, None], rng.random((rows, d)) + 0.1,
+                 0.0).astype(np.float32)
+    pick = cand[np.arange(rows)[:, None],
+                rng.integers(0, np.maximum(live, 1)[:, None], (rows, d))]
+    prev = np.sort(np.where(rng.random((rows, d)) < 0.5, pick, PAD_ID),
+                   axis=1).astype(np.int32)
+    u = cand[np.arange(rows), rng.integers(0, np.maximum(live, 1))]
+    r = rng.random(rows).astype(np.float32)
+    r[::3] = np.float32(1 - 2.0 ** -24)
+    r[1::5] = 0.0
+    for p, q in [(0.5, 2.0), (1.0, 1.0), (4.0, 0.25)]:
+        got = _emulated_small_draw(cand, w, u, prev, r, p, q)
+        want = exact_slots(*map(torch.from_numpy, (cand, w, u, prev, r)), p,
+                           q).numpy()
+        assert np.array_equal(got, want)
+
+
 def _hub_graph(seed=0, n=1200):
     """Random edges plus hubs of degree ~300-1000, so FN-Cache rows span
     three scan levels at hot_cap >= 913."""
@@ -421,12 +509,10 @@ def test_layout_plain_matches_jax(cap, hot_cap):
         assert np.array_equal(nxt.numpy(), want[1])
 
 
-def test_slot_past_the_live_lanes_gives_pad():
-    """slot == L when r * total reaches cum[L - 1] while staying below the
-    padded total (which exceeds cum[L - 1] by an ulp in some rows at D >
-    256): the padded row's id there is PAD_ID, in the JAX package as here,
-    since the clamp is to D - 1, not L - 1. A hub of 600 live lanes in a
-    layout of hot_cap 914, rand = 1 - 2^-24."""
+def _pad_hub():
+    """A hub of 600 live lanes in a graph of max degree 914 whose row's
+    padded total exceeds cum[L - 1] so that rand = 1 - 2^-24 gives slot
+    == L: returns (graph, L, rand)."""
     from repro.core.graph import CSRGraph as JaxCSR
     n, live = 1000, 600
     src = np.concatenate([np.zeros(live), np.ones(913)])
@@ -441,9 +527,17 @@ def test_slot_past_the_live_lanes_gives_pad():
         cum = prefix_sum(torch.from_numpy(row))[0]
         if cum[-1] > cum[live - 1] and \
                 int((cum[:live] <= r * cum[-1]).sum()) == live:
-            break
-    else:
-        raise AssertionError("no row with total > cum[L - 1] found")
+            return g, live, r
+    raise AssertionError("no row with total > cum[L - 1] found")
+
+
+def test_slot_past_the_live_lanes_gives_pad():
+    """slot == L when r * total reaches cum[L - 1] while staying below the
+    padded total (which exceeds cum[L - 1] by an ulp in some rows at D >
+    256): the padded row's id there is PAD_ID, in the JAX package as here,
+    since the clamp is to D - 1, not L - 1. A hub of 600 live lanes in a
+    layout of hot_cap 914, rand = 1 - 2^-24."""
+    g, live, r = _pad_hub()
     jpg, pg = _layout_pair(g, cap=24)
     assert pg.hot_cap == 914 and int(pg.deg[0]) == live
     u = np.array([1, 5, 600], np.int32)
@@ -455,3 +549,152 @@ def test_slot_past_the_live_lanes_gives_pad():
     assert np.array_equal(slot.numpy(), want[0])
     assert np.array_equal(nxt.numpy(), want[1])
     assert slot.tolist() == [live] * 3 and nxt.tolist() == [PAD_ID] * 3
+
+
+# ---- walks that reach PAD_ID --------------------------------------------
+
+def _fn_base(g):
+    """adj, wgt, deg of the FN-Base layout (width = max degree)."""
+    from repro.core.graph import PaddedGraph as JaxPG
+    jpg = JaxPG.build(g)
+    return tuple(np.array(getattr(jpg, f)) for f in ("adj", "wgt", "deg"))
+
+
+def _pad_walkers(g, rng, w, steps):
+    """Three walkers that step from the hub 0 to PAD_ID at their first
+    step (rand = 1 - 2^-24 throughout), then w - 3 random ones."""
+    n = g.n
+    u0 = np.concatenate([[1, 5, 600], rng.integers(0, n, w - 3)])
+    v1 = np.concatenate([[0, 0, 0], rng.integers(0, n, w - 3)])
+    rand = rng.random((w, steps)).astype(np.float32)
+    rand[:3] = np.float32(1 - 2.0 ** -24)
+    return u0.astype(np.int32), v1.astype(np.int32), rand
+
+
+@pytest.mark.parametrize("p,q", [(1.0, 1.0), (0.5, 2.0)])
+def test_walk_after_pad_matches_jax_op(p, q):
+    """A walk that draws PAD_ID (slot == L at the hub) stays at PAD_ID in
+    every later column, reading nothing, as the JAX package's
+    node2vec_walk_op keeps it (its take fills deg with INT_MIN there);
+    the other walkers of the batch equal the op's too."""
+    g, _, _ = _pad_hub()
+    adj, wgt, deg = _fn_base(g)
+    assert adj.shape == (g.n, 914)
+    u0, v1, rand = _pad_walkers(g, np.random.default_rng(0), 11, 6)
+    want = np.asarray(node2vec_walk_op(*map(jnp.asarray, (
+        adj, wgt, deg, u0, v1, rand)), p, q))
+    got = K.node2vec_walk(*map(torch.from_numpy, (adj, wgt, deg, u0, v1,
+                                                  rand)), p, q)
+    assert np.array_equal(got.numpy(), want)
+    if (p, q) == (1.0, 1.0):
+        assert (want[:3] == PAD_ID).all()
+
+
+def test_walk_from_out_of_range_ids_matches_jax_op():
+    """v1 at PAD_ID, n or n + 5 stays there; a u0 at one of them gives the
+    first step no prev row, as the op's filled take does."""
+    rng = np.random.default_rng(7)
+    n, d, w, steps = 64, 9, 12, 4
+    adj, wgt, deg = _walk_graph(rng, n, d)
+    u0 = rng.integers(0, n, w).astype(np.int32)
+    v1 = rng.integers(0, n, w).astype(np.int32)
+    v1[:3] = [PAD_ID, n, n + 5]
+    u0[3:6] = [PAD_ID, n, n + 5]
+    rand = rng.random((w, steps)).astype(np.float32)
+    args = (adj, wgt, deg, u0, v1, rand)
+    want = np.asarray(node2vec_walk_op(*map(jnp.asarray, args), 0.5, 2.0))
+    got = K.node2vec_walk(*map(torch.from_numpy, args), 0.5, 2.0)
+    assert np.array_equal(got.numpy(), want)
+    assert (want[:3] == v1[:3, None]).all()
+
+
+def _jax_walk_steps(adj, wgt, deg, u0, v1, rand, p, q):
+    """The whole-walk kernel's draws step by step in the JAX package on
+    D-wide rows (its exact_slots, take with the op's fill), without the
+    op's 128-lane padding of the width."""
+    from repro.engine.sampler import exact_slots as jax_exact_slots
+    adj, wgt, deg = map(jnp.asarray, (adj, wgt, deg))
+    u, v = jnp.asarray(u0), jnp.asarray(v1)
+    prev = jnp.take(adj, u, axis=0)
+    cols = []
+    for s in range(rand.shape[1]):
+        cand, w = jnp.take(adj, v, axis=0), jnp.take(wgt, v, axis=0)
+        slot = jax_exact_slots(cand, w, u, prev, jnp.asarray(rand[:, s]), p,
+                               q)
+        nxt = jnp.take_along_axis(cand, slot[:, None], axis=1)[:, 0]
+        nxt = jnp.where(jnp.take(deg, v) > 0, nxt, v)
+        u, v, prev = v, nxt, cand
+        cols.append(nxt)
+    return np.asarray(jnp.stack(cols, axis=1))
+
+
+@pytest.mark.parametrize("d", [300, 793, 913, 914])
+def test_walk_plain_matches_jax_steps_at_any_width(d):
+    """At widths whose 128-lane padding in node2vec_walk_op changes the
+    scan's levels (and so, in some rows, the total), node2vec_walk's plain
+    version equals the JAX package's draws step by step on the D-wide
+    rows; 914 is the hub graph, whose first three walkers reach PAD_ID."""
+    rng = np.random.default_rng(d)
+    if d == 914:
+        g, _, _ = _pad_hub()
+        adj, wgt, deg = _fn_base(g)
+        u0, v1, rand = _pad_walkers(g, rng, 11, 5)
+    else:
+        adj, wgt, deg = _walk_graph(rng, 3 * d, d)
+        u0, v1 = (rng.integers(0, 3 * d, 40).astype(np.int32)
+                  for _ in range(2))
+        rand = rng.random((40, 5)).astype(np.float32)
+        rand[::4] = np.float32(1 - 2.0 ** -24)
+    args = (adj, wgt, deg, u0, v1, rand)
+    for p, q in [(0.5, 2.0), (1.0, 1.0)]:
+        got = K.node2vec_walk(*map(torch.from_numpy, args), p, q)
+        assert np.array_equal(got.numpy(), _jax_walk_steps(*args, p, q))
+
+
+@pytest.mark.parametrize("last_hot", [False, True])
+def test_unified_row_clamps_like_jax(last_hot):
+    """Ids PAD_ID, n and n + 5 read row n - 1 in every field, as the JAX
+    package's clamped gathers do, on FN-Cache layouts whose last vertex is
+    cold (the PAD_ID hub graph) or hot (a hub of degree 40 at cap 24)."""
+    from repro.core.graph import CSRGraph as JaxCSR
+    from repro.core.walk import unified_row as jax_unified_row
+    from repro_torch.core.walk import unified_row
+    if last_hot:
+        rng = np.random.default_rng(2)
+        n = 60
+        src = np.concatenate([np.full(40, n - 1), rng.integers(0, n, 90)])
+        dst = np.concatenate([np.arange(40), rng.integers(0, n, 90)])
+        g = JaxCSR.from_edges(n, src, dst, (rng.random(130) + 0.5).astype(
+            np.float32))
+    else:
+        g, _, _ = _pad_hub()
+    jpg, pg = _layout_pair(g, cap=24)
+    assert (int(pg.hot_pos[g.n - 1]) >= 0) == last_hot
+    ids = np.array([PAD_ID, g.n, g.n + 5, g.n - 1], np.int32)
+    got = unified_row(pg, torch.from_numpy(ids))
+    want = jax.vmap(lambda x: jax_unified_row(jpg, x))(jnp.asarray(ids))
+    for a, b in zip(got, want):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+        assert all(np.array_equal(a[i].numpy(), a[3].numpy())
+                   for i in range(3))
+
+
+@pytest.mark.parametrize("cap", [None, 24])
+def test_layout_plain_from_pad_matches_jax(cap):
+    """node2vec_step_layout's plain version from u = v = PAD_ID (and n, n +
+    5) draws what the JAX package's step draws on its clamped rows: row n -
+    1, whose degree is not 0, so the walker leaves PAD_ID."""
+    g, _, _ = _pad_hub()
+    jpg, pg = _layout_pair(g, cap)
+    ids = np.array([PAD_ID, g.n, g.n + 5, PAD_ID], np.int32)
+    u = ids.copy()
+    u[3] = 1
+    rng = np.random.default_rng(5)
+    r = rng.random(4).astype(np.float32)
+    for p, q in [(1.0, 0.5), (0.5, 2.0)]:
+        want = _jax_layout_draw(jpg, u, ids, r, p, q)
+        slot, nxt = K.node2vec_step_layout(
+            pg, *map(torch.from_numpy, (u, ids, r)), p, q)
+        assert np.array_equal(slot.numpy(), want[0])
+        assert np.array_equal(nxt.numpy(), want[1])
+        assert (nxt.numpy() < g.n).all()
