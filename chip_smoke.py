@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port (walks, SGNS training and LM serving) on one
-NVIDIA GPU.
+"""Drive the PyTorch / CUDA port (walks, SGNS training, LM serving and
+embedding serving under graph churn) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -90,12 +90,35 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    split costs, and how many outputs one rounding moves past the check).
    Last, the
    same params in float32 on the card and on the CPU (B=1, S=512, 8
-   greedy tokens): the logits within ``atol=rtol=1e-3``, tokens equal.
+   greedy tokens): the logits within ``atol=rtol=1e-3``, tokens equal;
+8. path F — embedding serving with graph churn: ``EmbeddingService`` over
+   path A's graph store and path C's trained serving table (131,072 x
+   128) with ``WalkPlan(p=1, q=0.5, backend="fused", cap=128)`` and the
+   JAX launcher's ``--full`` settings (cache 512, linger 0.2 ms, margin 1
+   ms); every bucket (8, 32, 128) warmed for ``embed`` at window 10 and
+   ``rank_neighbors`` at k=10; ``synthetic_trace(n, 20_000, alpha=1.2,
+   rank_share=0.5, qps=20_000, deadline_s=0.05, seed=0)`` replayed against
+   the real clock with window 10 and k 10, and between its halves
+   ``zipf_churn(g, 4, 1024, seed=7)`` then one ``weight_churn`` batch of
+   1,024 events through ``refresh``. ``node2vec_step`` must launch once
+   per superstep of every walk window (9 a window), every request must be
+   answered or expired, and served values finite; every served walk-window
+   embedding (the warm-up's and the replay's cache misses) within 1e-6 of
+   the reference backend's walks on the layout it was served from,
+   averaged as the service does. Gates: (a) walkers of every bucket's
+   width (8, 32, 128: the second half's embed nodes) and 4,096 more
+   through the spliced layout, fused == reference backend; (b) on
+   ``wec:k=13,deg=100,seed=0`` each refresh's layout == a fresh
+   ``PaddedGraph.build`` field by field and walk-window embeddings == a
+   freshly built service's; (c) there, on FN-Base with ``pipeline=True``
+   after a weight-churn ``update``, ``node2vec_walk`` == its plain
+   version == the engine's walks == the reference backend's.
 
 It prints the card's name and power limit, the build seconds, the
 registers and spills of the walk kernels and the tensor-core kernel,
 walker-steps per second for each walk phase, prefill tokens/s and decode
-ms/token, a ``{"kernels": [...]}`` line, and last
+ms/token, path F's latency quantiles, QPS, hit rate, occupancy, refresh
+host ms and device-busy share, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 
     python3 chip_smoke.py --walks
@@ -169,6 +192,12 @@ E_ARCH, E_LAYERS = "yi-6b", 4   # published widths, depth cut 32 -> 4
 E_BATCH, E_SEQ, E_GEN = 4, 4096, 32
 E_LONG = 32768                  # prefill_32k's length, a second reading
 E_CPU_SEQ, E_CPU_GEN, E_CPU_TOL = 512, 8, 1e-3
+F_REQUESTS = 20_000             # serve_graph --full replays 50,000
+F_WINDOW, F_K = 10, 10
+F_PROFILED = 2_000              # requests of path F traced for busy share
+F_SAMPLE = 4_096                # gate (a)'s walkers beside the buckets
+F_EMBED_TOL = 1e-6              # served embed vs plain: reductions only
+F_SMALL_SPEC = "wec:k=13,deg=100,seed=0"
 
 
 def log(msg: str) -> None:
@@ -219,15 +248,16 @@ def device_us(evt) -> float:
     return 0.0
 
 
-def profile_round(torch, run, label: str, what: str = "round") -> None:
-    """Profile one warm call of ``run``: its wall seconds (host clock,
-    ending in a synchronize), the share of that window the device was busy
-    (the summed time of the device's own events), and the top kernels."""
+def profiled(torch, run, cpu: bool = True):
+    """Run ``run`` once under ``torch.profiler``: returns (wall seconds on
+    the host clock, ending in a synchronize; device-busy seconds, the summed
+    time of the device's own events; those events by device time). With
+    ``cpu=False`` only the device is traced, which costs the host less."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -236,13 +266,23 @@ def profile_round(torch, run, label: str, what: str = "round") -> None:
     events = sorted((e for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA and device_us(e) > 0),
                     key=device_us, reverse=True)
-    busy = sum(map(device_us, events)) / 1e6
+    return wall, sum(map(device_us, events)) / 1e6, events
+
+
+def log_profile(label: str, what: str, wall: float, busy: float,
+                events) -> None:
     log(f"profile {label}: {what} {wall:.4f} s under the profiler, device "
         f"busy {busy:.4f} s = {busy / wall:.3f} of the window"
         + ("" if events else " (the trace holds no device time)"))
     for e in events[:TOP]:
         log(f"  {device_us(e) / 1e3:10.3f} ms {e.count:7d} calls "
             f"{device_us(e) / 1e6 / busy:6.3f}  {e.key[:80]}")
+
+
+def profile_round(torch, run, label: str, what: str = "round") -> None:
+    """Profile one warm call of ``run``: its wall seconds, the share of
+    that window the device was busy, and the top kernels."""
+    log_profile(label, what, *profiled(torch, run))
 
 
 # ------------------------------------------------------- seeded inputs --
@@ -1286,6 +1326,267 @@ def path_e(np, torch, walks, one, dev="cuda"):
     return launches, max(err, err_long), r
 
 
+def f_small_gates(np, torch, K, table) -> None:
+    """Path F's gates (b) and (c) on ``F_SMALL_SPEC``. (b): each refresh's
+    layout on the card equals a from-scratch build at the same store
+    version, field by field (weight churn is spliced in place, mixed churn
+    may relayout), and walk-window embeddings after the refreshes equal a
+    freshly built service's. (c): on the FN-Base layout with
+    ``pipeline=True``, after a weight-churn update (spliced, no relayout),
+    the whole-walk kernel equals its plain version and the engine's walks
+    equal the reference backend's on the same layout."""
+    from repro_torch import random as jr
+    from repro_torch.core.graph import FIELDS, PaddedGraph
+    from repro_torch.core.walk import step_uniforms
+    from repro_torch.data.deltas import weight_churn, zipf_churn
+    from repro_torch.data.store import open_graph
+    from repro_torch.engine import WalkEngine, WalkPlan
+    from repro_torch.serve import EmbeddingService
+    plan = WalkPlan(p=1.0, q=0.5, backend="fused", cap=128)
+    kw = dict(plan=plan, cache_size=512, device=DEV)
+    svc = EmbeddingService(F_SMALL_SPEC, table, **kw)
+    g = svc.graph
+    batches = list(weight_churn(g, num_batches=2, batch_edges=1024,
+                                seed=3)) + \
+        list(zipf_churn(g, num_batches=2, batch_edges=1024, seed=7))
+    spliced = 0
+    for batch in batches:
+        rep = svc.refresh(batch)
+        fresh = PaddedGraph.build(svc.graph, cap=128, device=DEV)
+        if (svc._pg.cap, svc._pg.hot_cap) != (fresh.cap, fresh.hot_cap) or \
+                not all(torch.equal(getattr(svc._pg, f), getattr(fresh, f))
+                        for f in FIELDS):
+            raise AssertionError(f"F(b): the layout after refresh {rep} "
+                                 f"differs from a fresh build")
+        spliced += not rep["relayout"]
+        log(f"F(b): {F_SMALL_SPEC} refresh {rep}: layout == fresh build")
+    if spliced < 2:
+        raise AssertionError("F(b): the weight churn was not spliced")
+    again = open_graph(F_SMALL_SPEC)
+    again.apply(batches)
+    other = EmbeddingService(again, table, **kw)
+    nodes = np.random.default_rng(1).choice(g.n, 128, replace=False)
+    got = svc.embed(nodes, window=F_WINDOW)
+    if not np.array_equal(got, other.embed(nodes, window=F_WINDOW)):
+        raise AssertionError("F(b): embed after refresh differs from a "
+                             "freshly built service")
+    if not np.all(np.isfinite(got)):
+        raise AssertionError("F(b): embeddings are not finite")
+    del svc, other, fresh
+
+    eng = WalkEngine.build(F_SMALL_SPEC, WalkPlan(
+        p=1.0, q=0.5, length=LENGTH, backend="fused", pipeline=True),
+        device=DEV)
+    rep = eng.update(list(weight_churn(eng.store.graph, num_batches=1,
+                                       batch_edges=1024, seed=5)))
+    if rep.relayout or not eng._fused_persistent():
+        raise AssertionError(f"F(c): the update relaid out ({rep})")
+    pg = eng.pg
+    walks = eng.run(seed=0).walks
+    ref = WalkEngine.build(pg, WalkPlan(p=1.0, q=0.5, length=LENGTH,
+                                        backend="reference"))
+    if not np.array_equal(walks, ref.run(seed=0).walks):
+        raise AssertionError("F(c): fused walks after the update differ "
+                             "from the reference backend's")
+    starts = torch.arange(pg.n, dtype=torch.int32, device=DEV)
+    v1 = torch.from_numpy(walks[:, 0].copy()).to(DEV)
+    rand = step_uniforms(jr.PRNGKey(0, device=DEV), starts.long(), LENGTH)
+    args = (pg.adj, pg.wgt, pg.deg, starts, v1, rand, 1.0, 0.5)
+    got = K.node2vec_walk(*args)
+    if not torch.equal(got, K.node2vec_walk_plain(*args)) or \
+            not np.array_equal(got.cpu().numpy(), walks[:, 1:]):
+        raise AssertionError("F(c): node2vec_walk on the spliced layout "
+                             "differs from its plain version")
+    log(f"F(c): FN-Base D={pg.cap} after a weight-churn update "
+        f"({rep.patch.num_affected} rows spliced, no relayout): "
+        f"node2vec_walk == plain == the engine's walks == reference")
+
+
+def path_f(np, torch, K, store, table) -> dict:
+    """Path F: an ``EmbeddingService`` over path A's graph and path C's
+    serving table on the fused backend (FN-Cache, cap 128), the JAX
+    launcher's ``--full`` settings: every bucket warmed, a Zipf trace of
+    ``F_REQUESTS`` replayed against the real clock (closed loop), with
+    ``zipf_churn`` (and one weight-churn batch) applied through
+    ``refresh`` between its halves. Returns the readings."""
+    import dataclasses
+    from repro_torch.data.deltas import weight_churn, zipf_churn
+    from repro_torch.engine import WalkEngine, WalkPlan
+    from repro_torch.serve import EmbeddingService, synthetic_trace
+    from repro_torch.serve.service import _walk_avg
+    plan = WalkPlan(p=1.0, q=0.5, backend="fused", cap=128)
+    t0 = time.perf_counter()
+    svc = EmbeddingService(store, table, plan=plan, cache_size=512,
+                           linger_s=2e-4, margin_s=1e-3, device=DEV)
+    pg = svc._pg         # the first half's layout; refresh builds anew
+    mbytes = sum(t.numel() * t.element_size() for t in vars(pg).values()
+                 if torch.is_tensor(t))
+    log(f"F: {A_SPEC}: n={pg.n} m={svc.graph.m} cap={pg.cap} hot_cap="
+        f"{pg.hot_cap} hot={pg.num_hot}; table {tuple(svc.emb.shape)} "
+        f"({svc.emb.numel() * 4 / 1e6:.1f} MB), layout {mbytes / 1e6:.1f} "
+        f"MB, service built in {time.perf_counter() - t0:.2f} s host")
+    t0 = time.perf_counter()
+    warm = {}
+    for b in svc.batcher.buckets:
+        nodes = [0] * b
+        svc.embed(nodes, window=0)
+        warm[b] = svc.embed(nodes, window=F_WINDOW)
+        svc.rank_neighbors(nodes, F_K)
+    torch.cuda.synchronize()
+    log(f"F: buckets {svc.batcher.buckets} warmed in "
+        f"{time.perf_counter() - t0:.2f} s")
+    n = svc.graph.n
+    trace = synthetic_trace(n, F_REQUESTS, alpha=1.2, rank_share=0.5,
+                            qps=20_000.0, deadline_s=0.05, seed=0)
+    t0 = time.perf_counter()
+    churn = list(zipf_churn(svc.graph, num_batches=4, batch_edges=1024,
+                            seed=7))
+    log(f"F: zipf_churn of 4 x 1024 events made in "
+        f"{time.perf_counter() - t0:.2f} s host")
+    responses = []
+    asked = {}           # rid -> (kind, node, layout) of the cache misses
+
+    def replay(events, layout):
+        for ev in events:
+            hits = svc.cache.hits
+            rid = svc.submit(ev.kind, ev.node, window=F_WINDOW, k=F_K,
+                             deadline_s=ev.deadline_s)
+            if svc.cache.hits == hits:
+                asked[rid] = (ev.kind, ev.node, layout)
+            responses.extend(svc.pump())
+        responses.extend(svc.drain())
+
+    half = F_REQUESTS // 2
+    runs = count_calls(WalkEngine, "run")
+    K.node2vec_step.launches = 0
+    K.node2vec_walk.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replay(trace[:half], 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        refreshes = []
+
+        def refresh(batch):
+            t1 = time.perf_counter()
+            rep = svc.refresh(batch)
+            torch.cuda.synchronize()
+            refreshes.append(((time.perf_counter() - t1) * 1e3, rep))
+            log(f"F: refresh {len(refreshes)}: {refreshes[-1][0]:.1f} ms "
+                f"host, {rep}")
+        for batch in churn:
+            refresh(batch)
+        # weight churn on the churned graph: degrees stay, rows spliced
+        refresh(next(weight_churn(svc.graph, num_batches=1,
+                                  batch_edges=1024, seed=7)))
+        # the second half; its first F_PROFILED requests traced (device
+        # activity only), which the stats include
+        t1 = time.perf_counter()
+        p_wall, p_busy, p_events = profiled(
+            torch, lambda: replay(trace[half:half + F_PROFILED], 1),
+            cpu=False)
+        replay(trace[half + F_PROFILED:], 1)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t1
+    finally:
+        runs = runs()
+    launches = K.node2vec_step.launches
+    st = svc.stats()
+    log(f"F: replay of {F_REQUESTS} requests (window {F_WINDOW}, k {F_K}, "
+        f"zipf a=1.2, rank share 0.5, deadline 50 ms) in {wall:.2f} s "
+        f"host: requests {st.requests} expired {st.expired} batches "
+        f"{st.batches} p50 {st.p50_latency_us:.1f} us p99 "
+        f"{st.p99_latency_us:.1f} us QPS {st.qps:.1f} hit rate "
+        f"{st.cache_hit_rate:.4f} occupancy {st.batch_occupancy:.4f}")
+    log(f"F: node2vec_step launches in the replay {launches} for {runs} "
+        f"walk-window runs of {F_WINDOW} steps; node2vec_walk "
+        f"{K.node2vec_walk.launches}")
+    log_profile("F replay", f"{F_PROFILED} requests of the second half",
+                p_wall, p_busy, p_events)
+    if st.requests + st.expired != F_REQUESTS or \
+            len(responses) != F_REQUESTS:
+        raise AssertionError(f"F(d): {st.requests} + {st.expired} "
+                             f"responses ({len(responses)} returned) for "
+                             f"{F_REQUESTS} requests")
+    if runs == 0 or launches != runs * (F_WINDOW - 1) or \
+            K.node2vec_walk.launches:
+        raise AssertionError(f"F: node2vec_step launched {launches} times "
+                             f"for {runs} walk windows")
+    for r in responses:
+        if r.expired:
+            continue
+        ok = (np.all(np.isfinite(r.value)) and r.value.shape == (128,)) \
+            if not isinstance(r.value, tuple) else (
+                r.value[0].shape == (F_K,) and r.value[0].min() >= -1
+                and r.value[0].max() < n
+                and np.all(np.isfinite(r.value[1][r.value[0] >= 0])))
+        if not ok:
+            raise AssertionError(f"F: bad response {r}")
+
+    # gate (a): walks through the refreshed (spliced) layout, fused vs
+    # the reference backend on the same device layout, at every bucket's
+    # width (from the second half's embed nodes) and at F_SAMPLE walkers
+    if refreshes[-1][1]["relayout"]:
+        raise AssertionError("F(a): the weight-churn refresh relaid out")
+    short = dataclasses.replace(plan, length=F_WINDOW)
+    plain = dataclasses.replace(short, backend="reference")
+    second = [ev.node for ev in trace[half:] if ev.kind == "embed"]
+    _, first_at = np.unique(second, return_index=True)
+    second = np.asarray(second, np.int32)[np.sort(first_at)]
+    sample = np.random.default_rng(0).choice(n, F_SAMPLE, replace=False)
+    for starts in [second[:b] for b in svc.batcher.buckets] + [sample]:
+        starts = starts.astype(np.int32)
+        got = WalkEngine.build(svc._pg, short).run(
+            starts=starts, seed=svc.walk_seed, walker_ids=starts).walks
+        want = WalkEngine.build(svc._pg, plain).run(
+            starts=starts, seed=svc.walk_seed, walker_ids=starts).walks
+        if not np.array_equal(got, want):
+            raise AssertionError(f"F(a): fused walks of {len(starts)} "
+                                 f"walkers on the patched layout differ "
+                                 f"from the reference backend's")
+    log(f"F(a): walkers {list(svc.batcher.buckets) + [F_SAMPLE]} x "
+        f"{F_WINDOW} on the spliced layout: fused == reference")
+
+    # every served walk-window embedding (warm-up and the replay's cache
+    # misses) against walks of the reference backend on the layout it was
+    # served from, averaged as the service does
+    def plain_embed(layout, nodes):
+        nodes = np.asarray(nodes, np.int32)
+        walks = WalkEngine.build(layout, plain).run(
+            starts=nodes, seed=svc.walk_seed, walker_ids=nodes).walks
+        return _walk_avg(svc.emb, torch.from_numpy(nodes).to(DEV),
+                         torch.from_numpy(walks).to(DEV)).cpu().numpy()
+
+    served = [{0: [row for b in warm for row in warm[b]]}, {}]
+    for r in responses:
+        kind, node, layout = asked.get(r.rid, ("hit", 0, 0))
+        if kind == "embed" and not r.expired:
+            served[layout].setdefault(node, []).append(r.value)
+    embed_err, checked = 0.0, 0
+    for layout, got in zip((pg, svc._pg), served):
+        nodes = np.fromiter(got, np.int64, len(got))
+        for node, want in zip(nodes, plain_embed(layout, nodes)):
+            for value in got[node]:
+                embed_err = max(embed_err, float(np.abs(value - want).max()))
+                checked += 1
+    if not embed_err <= F_EMBED_TOL:
+        raise AssertionError(f"F: served embeddings differ from the plain "
+                             f"walks' by {embed_err:.3g} > {F_EMBED_TOL}")
+    log(f"F: {checked} served walk-window embeddings (warm-up and the "
+        f"replay's cache misses, {len(served[0])} + {len(served[1])} nodes "
+        f"on the two layouts) == the reference backend's walks averaged, "
+        f"max |diff| {embed_err:.3g} (tolerance {F_EMBED_TOL})")
+    del svc, pg
+    torch.cuda.empty_cache()
+    f_small_gates(np, torch, K, table)
+    return {"stats": dataclasses.asdict(st), "launches": launches,
+            "runs": runs, "wall": wall, "busy": p_busy / p_wall,
+            "embed_err": embed_err, "embeds_checked": checked,
+            "refresh_ms": [ms for ms, _ in refreshes],
+            "relayouts": [rep["relayout"] for _, rep in refreshes]}
+
+
 def _to_cpu(tree):
     return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
             for k, v in tree.items()}
@@ -1354,6 +1655,7 @@ def main(argv) -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch import random as jr
     from repro_torch.core.graph import PAD_ID
+    from repro_torch.core.skipgram import serving_table
     from repro_torch.core.walk import step_uniforms, unified_row
     from repro_torch.engine import WalkEngine, WalkPlan
     from repro_torch.kernels import build
@@ -1504,6 +1806,7 @@ def main(argv) -> int:
         f"the rows' assembly (unified_row of v and u) {step['rows_ms']:.4f} "
         f"ms; plain layout {step['plain_ms']:.4f} ms, plain rows "
         f"{step['plain_rows_ms']:.4f} ms")
+    store_a = first.store                     # path F serves this graph
     del first, fused, ref, walks, ref_walks, cand, cw, prev
 
     # ---- main path C: streamed SGNS with the fused kernel --------------
@@ -1514,6 +1817,7 @@ def main(argv) -> int:
     sgns_err = max(sgns_err, sg["err"], bw["err"])
     profile_round(torch, lambda: trainer.consume(
         c_walks[0][:C_PROFILE_WALKERS]), "C fused SGNS", "~200 steps")
+    table_c = serving_table(trainer.params)    # path F's table
     del trainer, c_walks, pg_a
 
     # ---- main path B: whole-walk kernel, FN-Base -----------------------
@@ -1540,6 +1844,11 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     flash_launches, err, fl = path_e(np, torch, lm_walks, one_rounding)
     flash_err = max(flash_err, err)
+    del lm_walks
+    torch.cuda.empty_cache()
+
+    # ---- path F: embedding serving with churn, step kernel per superstep
+    f = path_f(np, torch, K, store_a, table_c)
 
     kernels = [
         {"name": "node2vec_step", "route": "cuda", "source": CU_SOURCE,
@@ -1552,6 +1861,7 @@ def main(argv) -> int:
          "bound_ms_rows_entry": rows_bound[0],
          "plain_rows_ms": step["plain_rows_ms"],
          "launches_approx": step_launches["approx"],
+         "launches_serving": f["launches"],
          "unified_row_calls": rows_built},
         {"name": "node2vec_walk", "route": "cuda", "source": CU_SOURCE,
          "replaces": "src/repro/kernels/node2vec_step.py:192",

@@ -1,1 +1,1 @@
-"""Graph spec registry and the read-only GraphStore."""
+"""Graph spec registry, the versioned GraphStore and edge-delta batches."""

@@ -2,8 +2,8 @@
 from repro_torch.engine.plan import BACKENDS, WalkPlan, WalkResult, WalkStats
 from repro_torch.engine.sampler import Sampler
 
-__all__ = ["BACKENDS", "Sampler", "WalkEngine", "WalkPlan", "WalkResult",
-           "WalkStats", "round_seed"]
+__all__ = ["BACKENDS", "Sampler", "UpdateReport", "WalkEngine", "WalkPlan",
+           "WalkResult", "WalkStats", "round_seed"]
 
 
 def __getattr__(name):
@@ -12,5 +12,8 @@ def __getattr__(name):
     if name in ("WalkEngine", "round_seed"):
         from repro_torch.engine import engine as _engine
         return getattr(_engine, name)
+    if name == "UpdateReport":
+        from repro_torch.engine.update import UpdateReport
+        return UpdateReport
     raise AttributeError(
         f"module 'repro_torch.engine' has no attribute {name!r}")

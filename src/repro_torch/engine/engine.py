@@ -10,6 +10,10 @@
 :class:`PaddedGraph`. ``device=None`` means the card; the tests pass
 ``device="cpu"``. Walker ids default to the start vertex ids, so the same
 plan and seed give the same walks on every backend and in the JAX package.
+
+``engine.update(deltas)`` applies edge deltas through the engine's
+GraphStore and splices only the affected rows into a new device layout
+(``repro_torch.engine.update``); runs already enqueued keep the old one.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from repro_torch.core.walk import run_fused_persistent, run_reference
 from repro_torch.data.store import open_graph
 from repro_torch.device import resolve_device
 from repro_torch.engine.plan import WalkPlan, WalkResult, WalkStats
+from repro_torch.engine.update import UpdateReport, patch_padded
 
 
 def round_seed(seed: int, r: int) -> int:
@@ -37,9 +42,11 @@ class WalkEngine:
     def __init__(self, plan: WalkPlan, pg: PaddedGraph, store=None):
         self.plan = plan
         self.pg = pg
-        self.store = store
+        self.store = store              # GraphStore (update()'s source)
         self._sampler = plan.sampler()
         self._no_hot = int(pg.hot_pos.max()) < 0
+        self._delta_edges = 0           # cumulative churn via update()
+        self._last_invalidated_fraction = 0.0
 
     @classmethod
     def build(cls, graph, plan: WalkPlan, device=None) -> "WalkEngine":
@@ -72,8 +79,15 @@ class WalkEngine:
                 and self._sampler.mode == "exact" and self.plan.length >= 2
                 and self._no_hot)
 
-    def _dispatch(self, starts, seed: int, walker_ids) -> torch.Tensor:
-        """Enqueue one run; returns the walks tensor on the device."""
+    def _update_meta(self):
+        """(graph_version, delta_edges, invalidated fraction), taken when a
+        run is enqueued, so streamed rounds report the graph they walked."""
+        gv = self.store.version if self.store is not None else 0
+        return (gv, self._delta_edges, self._last_invalidated_fraction)
+
+    def _dispatch(self, starts, seed: int, walker_ids):
+        """Enqueue one run; returns (walks tensor on the device, the
+        update snapshot)."""
         dev = self.device
         key = jr.PRNGKey(seed, device=dev)
         if starts is None:
@@ -83,14 +97,18 @@ class WalkEngine:
             np.asarray(walker_ids, np.int32), device=dev)
         run = run_fused_persistent if self._fused_persistent() \
             else run_reference
-        return run(self.pg, starts, walker_ids.long(), key, self._sampler,
-                   self.plan.length)
+        walks = run(self.pg, starts, walker_ids.long(), key, self._sampler,
+                    self.plan.length)
+        return walks, self._update_meta()
 
-    def _finalize(self, walks: torch.Tensor) -> WalkResult:
+    def _finalize(self, dispatched) -> WalkResult:
+        walks, (gv, delta_edges, inv_frac) = dispatched
         walks = walks.cpu().numpy()
         stats = WalkStats(backend=self.plan.backend,
                           walkers=int(walks.shape[0]),
-                          supersteps=self.plan.length)
+                          supersteps=self.plan.length, graph_version=gv,
+                          delta_edges=delta_edges,
+                          invalidated_shard_fraction=inv_frac)
         return WalkResult(walks=walks, stats=stats)
 
     def run(self, starts=None, seed: int = 0, walker_ids=None) -> WalkResult:
@@ -109,3 +127,33 @@ class WalkEngine:
                 if r + 1 < num_rounds else None
             yield self._finalize(pending)
             pending = nxt
+
+    def update(self, deltas) -> UpdateReport:
+        """Apply edge deltas to the resident graph without a whole-graph
+        rebuild: the store patches the host CSR shard-locally, then only
+        the affected rows' adjacency, alias tables and FN-Cache hot entries
+        are spliced into a new layout (a full relayout only when the
+        layout's shapes can no longer hold the new graph). Walks after
+        ``update()`` equal those of an engine built from scratch at the
+        same store version."""
+        if self.store is None:
+            raise ValueError(
+                "update() needs the engine's GraphStore — build the engine "
+                "from a spec string, CSRGraph, Dataset, or GraphStore (a "
+                "prebuilt PaddedGraph carries no host CSR to patch)")
+        patch = self.store.apply(deltas)
+        self.pg, relayout, hot_rows = patch_padded(
+            self.pg, self.store.graph, patch.affected, self.plan.cap,
+            self.plan.hot_cap)
+        if relayout:
+            self._no_hot = int(self.pg.hot_pos.max()) < 0
+        device_shards = patch.num_shards
+        invalidated = device_shards if relayout \
+            else int(len(patch.affected_shards))
+        self._delta_edges += patch.delta_edges
+        self._last_invalidated_fraction = invalidated / max(device_shards, 1)
+        return UpdateReport(
+            patch=patch, version=self.store.version, relayout=relayout,
+            device_shards=device_shards,
+            invalidated_device_shards=invalidated,
+            hot_rows_updated=hot_rows)

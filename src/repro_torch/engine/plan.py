@@ -53,10 +53,24 @@ class WalkPlan:
 
 @dataclasses.dataclass(frozen=True)
 class WalkStats:
-    """Per-run diagnostics; ``supersteps`` equals the walk length."""
+    """Per-run diagnostics; ``supersteps`` equals the walk length.
+
+    ``graph_version``      — the GraphStore delta counter this run walked
+                             (stamped when the run is enqueued, so streamed
+                             rounds report the version they walked); 0
+                             without a store.
+    ``delta_edges``        — cumulative edge events applied through
+                             ``WalkEngine.update`` so far.
+    ``invalidated_shard_fraction`` — fraction of patch shards the last
+                             ``update`` rewrote (1.0 on a relayout, 0.0
+                             before any update).
+    """
     backend: str
     walkers: int
     supersteps: int
+    graph_version: int = 0
+    delta_edges: int = 0
+    invalidated_shard_fraction: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -205,6 +205,95 @@ def test_fused_walks_on_card_match_cpu(cuda, mode, cap, pipeline):
     assert K.node2vec_step.launches + K.node2vec_walk.launches > before
 
 
+CHURN_SPEC = "wec:k=8,deg=12,seed=1"
+
+
+def _churn_batches(spec):
+    """Weight churn among the hubs (no relayout), then mixed churn."""
+    from repro_torch.data.deltas import weight_churn, zipf_churn
+    from repro_torch.data.store import open_graph
+    g = open_graph(spec).graph
+    return (list(weight_churn(g, num_batches=2, batch_edges=12, seed=2,
+                              top=64))
+            + list(zipf_churn(g, num_batches=2, batch_edges=12, seed=4)))
+
+
+@pytest.mark.parametrize("cap", [None, 16])
+def test_patched_layout_on_card_equals_fresh_build(cuda, cap):
+    """patch_padded on the card: every field equals a from-scratch build at
+    the same store version where no relayout was needed; walks on the fused
+    backend after each update equal the CPU reference backend's."""
+    from repro_torch.core.graph import FIELDS, PaddedGraph
+    from repro_torch.data.store import open_graph
+    plan = dict(p=0.5, q=2.0, length=8, cap=cap)
+    eng = WalkEngine.build(CHURN_SPEC, WalkPlan(backend="fused", **plan))
+    cpu = WalkEngine.build(CHURN_SPEC, WalkPlan(backend="reference", **plan),
+                           device="cpu")
+    st = open_graph(CHURN_SPEC)
+    relayouts = []
+    for batch in _churn_batches(CHURN_SPEC):
+        rep = eng.update(batch)
+        cpu.update(batch)
+        st.apply(batch)
+        relayouts.append(rep.relayout)
+        if not rep.relayout:
+            fresh = PaddedGraph.build(st.graph, cap=cap, device=cuda)
+            for f in FIELDS:
+                assert torch.equal(getattr(eng.pg, f), getattr(fresh, f)), f
+        assert np.array_equal(eng.run(seed=3).walks, cpu.run(seed=3).walks)
+    assert not any(relayouts[:2])
+
+
+def test_service_refresh_on_card_equals_a_fresh_service(cuda):
+    """EmbeddingService on the fused backend: after each refresh, walk-
+    window embeddings on the card equal a service built fresh at the same
+    version, and the CPU service's within float rounding."""
+    from repro_torch.data.store import open_graph
+    from repro_torch.serve import EmbeddingService
+    g = open_graph(CHURN_SPEC).graph
+    emb = np.random.default_rng(0).normal(size=(g.n, 32)).astype(np.float32)
+    kw = dict(plan=WalkPlan(p=0.5, q=2.0, backend="fused", cap=16),
+              cache_size=64)
+    svc = EmbeddingService(CHURN_SPEC, emb, **kw)
+    cpu = EmbeddingService(CHURN_SPEC, emb, device="cpu", **kw)
+    nodes = np.arange(0, g.n, 5)[:128]
+    batches = _churn_batches(CHURN_SPEC)
+    for i, batch in enumerate(batches):
+        assert svc.refresh(batch) == cpu.refresh(batch)
+        st = open_graph(CHURN_SPEC)
+        st.apply(batches[:i + 1])
+        fresh = EmbeddingService(st, emb, **kw)
+        got = svc.embed(nodes, window=6)
+        assert np.array_equal(got, fresh.embed(nodes, window=6))
+        np.testing.assert_allclose(got, cpu.embed(nodes, window=6),
+                                   rtol=0, atol=1e-6)
+
+
+def test_walk_kernel_on_patched_fn_base_matches_plain(cuda):
+    """fused + pipeline on FN-Base after a weight-churn update: the whole
+    walk reads the spliced rows, equal to its plain version and to the CPU
+    reference backend."""
+    kw = dict(p=0.5, q=2.0, length=12, pipeline=True)
+    eng = WalkEngine.build(CHURN_SPEC, WalkPlan(backend="fused", **kw))
+    cpu = WalkEngine.build(CHURN_SPEC, WalkPlan(backend="reference", **kw),
+                           device="cpu")
+    for batch in _churn_batches(CHURN_SPEC)[:2]:
+        assert not eng.update(batch).relayout
+        cpu.update(batch)
+    assert eng._fused_persistent()
+    pg = eng.pg
+    rng = np.random.default_rng(0)
+    u0 = torch.from_numpy(rng.integers(0, pg.n, 1024).astype(np.int32))
+    v1 = torch.from_numpy(rng.integers(0, pg.n, 1024).astype(np.int32))
+    rand = torch.from_numpy(rng.random((1024, 11)).astype(np.float32))
+    args = (pg.adj, pg.wgt, pg.deg, u0.to(cuda), v1.to(cuda), rand.to(cuda))
+    before = K.node2vec_walk.launches
+    got = K.node2vec_walk(*args, 0.5, 2.0)
+    assert K.node2vec_walk.launches == before + 1
+    assert torch.equal(got, K.node2vec_walk_plain(*args, 0.5, 2.0))
+    assert np.array_equal(eng.run(seed=4).walks, cpu.run(seed=4).walks)
+
+
 @pytest.mark.parametrize("b,k,d", [(8, 1, 16), (1024, 5, 128),
                                    (3, 12, 300), (256, 40, 64),
                                    (256, 5, 1024)])

@@ -54,6 +54,20 @@ def test_entry_points_need_a_card_or_the_cpu(monkeypatch):
     assert walks.shape == (4, 3)
 
 
+def test_serving_entry_points_need_a_card_or_the_cpu(monkeypatch):
+    from repro_torch.launch import serve_graph
+    from repro_torch.serve import EmbeddingService
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    emb = np.eye(16, 4, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EmbeddingService("wec:k=4,deg=4", emb)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_graph.main(["--smoke", "--requests", "10"])
+    svc = EmbeddingService("wec:k=4,deg=4", emb, device="cpu")
+    assert svc.device == torch.device("cpu")
+    assert svc.embed([1, 2], window=2).shape == (2, 4)
+
+
 def test_trainer_entry_points_need_a_card_or_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Node2VecConfig(walk_length=4, num_walks=1, window=2, dim=4,
