@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port (walks, SGNS training, LM serving and
-embedding serving under graph churn) on one NVIDIA GPU.
+"""Drive the PyTorch / CUDA port (walks, SGNS training, LM serving,
+embedding serving under graph churn, and the training launcher on an
+on-disk edge list) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -65,9 +66,10 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    bytes the draws need (live lanes only, not the PAD lanes that pad each
    row to the widest) over 3.35 TB/s, or float32 operations over
    67 TFLOP/s, whichever is larger;
-5. profiles one more round of each walk path and ~200 steps of path C
-   with ``torch.profiler``: the window's wall seconds, the share of it the
-   device was busy, and the kernels with the most device time;
+5. profiles one more round of each walk path and ~200 steps of paths C
+   and G1 with ``torch.profiler``, tracing the device's activity only:
+   the window's wall seconds, the share of it the device was busy, and
+   the kernels with the most device time;
 6. path D — the entry point ``train_streamed`` end to end on the card and
    on the CPU (``sbm:n=400,c=4,pin=0.06,pout=0.004,seed=1`` with
    bench_accuracy's weights, fused walks and fused SGNS): the two
@@ -96,7 +98,7 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    128) with ``WalkPlan(p=1, q=0.5, backend="fused", cap=128)`` and the
    JAX launcher's ``--full`` settings (cache 512, linger 0.2 ms, margin 1
    ms); every bucket (8, 32, 128) warmed for ``embed`` at window 10 and
-   ``rank_neighbors`` at k=10; ``synthetic_trace(n, 20_000, alpha=1.2,
+   ``rank_neighbors`` at k=10; ``synthetic_trace(n, 5_000, alpha=1.2,
    rank_share=0.5, qps=20_000, deadline_s=0.05, seed=0)`` replayed against
    the real clock with window 10 and k 10, and between its halves
    ``zipf_churn(g, 4, 1024, seed=7)`` then one ``weight_churn`` batch of
@@ -112,7 +114,34 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    ``PaddedGraph.build`` field by field and walk-window embeddings == a
    freshly built service's; (c) there, on FN-Base with ``pipeline=True``
    after a weight-churn ``update``, ``node2vec_walk`` == its plain
-   version == the engine's walks == the reference backend's.
+   version == the engine's walks == the reference backend's;
+9. path G — training with sharded tables and the launcher. G1: right
+   after path C, ``StreamingSGNSTrainer(..., shard_tables=True)`` at path
+   C's settings over path C's two rounds: lazy row-Adam on each batch's
+   unique rows, ``sgns_fused``'s row entry (through ``sgns_row_grads``)
+   once a step and the table entry never, the loss falling within each
+   round, a concat replay of round 0 ``torch.equal`` to the streamed
+   tables, the tables within 2e-4 of the same trainer on the CPU after
+   its first 100 steps, and at that reading and after each round within
+   10x of a control's gap to the CPU (the CPU trainer with its row grads
+   rounded once from float64: what rounding alone does under lazy
+   row-Adam), and different from path C's dense tables; sharded and dense
+   steps/s in turns and a profile of ~200 steps. The CPU trainers run in
+   a worker process (``python3 chip_smoke.py --g1-cpu DIR``, which sees
+   no card) beside paths G1 to G2, and are read at the end. G2:
+   ``wec:k=16,deg=100,seed=0`` written with ``write_edgelist`` once per
+   undirected edge (~3.3M lines), then
+   ``repro_torch.launch.train.main`` in this process with ``--graph
+   edgelist:<file>,relabel=degree --graph-cache <dir> --p 1 --q 0.5
+   --rounds 1 --walk-length 80 --dim 128 --window 10 --negatives 5
+   --sgns-batch 65536 --sgns-backend fused --shard-tables``: the cached
+   CSR and ``perm.npy`` must equal ``relabel_by_degree`` of the in-memory
+   graph, a second ``open_graph`` must hit the cache (no builder called,
+   memmap-backed arrays), the row entry must launch once a step,
+   ``embeddings.npy`` must be finite with unit-norm rows, and a second
+   run on the same ``--ckpt-dir`` must resume from the checkpointed
+   rounds and write the same ``embeddings.npy``; each stage's host
+   seconds are printed.
 
 It prints the card's name and power limit, the build seconds, the
 registers and spills of the walk kernels and the tensor-core kernel,
@@ -125,13 +154,14 @@ host ms and device-busy share, a ``{"kernels": [...]}`` line, and last
 
 runs phase 3 alone and prints its kernel times as one JSON line: copied
 into a checkout of another commit, it times that commit's walk kernel on
-the same inputs.
+the same inputs. Whatever the script started is stopped when it exits.
 """
 from __future__ import annotations
 
 import ctypes
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -192,12 +222,30 @@ E_ARCH, E_LAYERS = "yi-6b", 4   # published widths, depth cut 32 -> 4
 E_BATCH, E_SEQ, E_GEN = 4, 4096, 32
 E_LONG = 32768                  # prefill_32k's length, a second reading
 E_CPU_SEQ, E_CPU_GEN, E_CPU_TOL = 512, 8, 1e-3
-F_REQUESTS = 20_000             # serve_graph --full replays 50,000
+F_REQUESTS = 5_000              # serve_graph --full replays 50,000
 F_WINDOW, F_K = 10, 10
 F_PROFILED = 2_000              # requests of path F traced for busy share
 F_SAMPLE = 4_096                # gate (a)'s walkers beside the buckets
 F_EMBED_TOL = 1e-6              # served embed vs plain: reductions only
 F_SMALL_SPEC = "wec:k=13,deg=100,seed=0"
+G_CPU_STEPS = 100               # G1's card-vs-CPU gate after these steps
+G_CPU_TOL = 2e-4
+# G1's control: the CPU trainer with each row gradient rounded once from
+# float64 (a change of float rounding, not of the math); lazy row-Adam
+# amplifies it to the card's order (PERF.md §6). The card rounds
+# more operations differently (transcendentals, the sums in the kernel and
+# the scatter), so its gap to the CPU may be a few times the control's; a
+# gap past this factor is more than rounding
+G_ORDER_FACTOR = 10
+G1_WORK = ROOT / "build" / "chip_smoke_g1"   # the CPU worker's files
+G1_CPU_THREADS = 4              # its torch threads, beside the card's paths
+G1_CPU_WAIT_S = 900             # the longest the script waits for it
+G2_SPEC = "wec:k=16,deg=100,seed=0"
+G2_ROUNDS = 1                   # the launcher's --rounds, cut from 10
+G_BATCH = 65536                 # G2's --sgns-batch
+
+
+CHILDREN: list = []             # worker processes, stopped at exit
 
 
 def log(msg: str) -> None:
@@ -241,32 +289,32 @@ def walks_err(np, a, b) -> int:
                for x, y in zip(a, b))
 
 
-def device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
-def profiled(torch, run, cpu: bool = True):
-    """Run ``run`` once under ``torch.profiler``: returns (wall seconds on
-    the host clock, ending in a synchronize; device-busy seconds, the summed
-    time of the device's own events; those events by device time). With
-    ``cpu=False`` only the device is traced, which costs the host less."""
+def profiled(torch, run):
+    """Run ``run`` once under ``torch.profiler``, tracing the device's
+    activity only: returns (wall seconds on the host clock, ending in a
+    synchronize; device-busy seconds, the summed time of the device's own
+    events; those events grouped by name as (name, calls, microseconds),
+    by device time). The events are read from the trace as it stands:
+    ``key_averages`` first builds a tree of every event, which costs the
+    host tens of seconds at ~10^5 kernels (~200 trainer steps)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side events only: a CPU op's device time repeats its kernels'
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA and device_us(e) > 0),
-                    key=device_us, reverse=True)
-    return wall, sum(map(device_us, events)) / 1e6, events
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        us = e.duration_ns() / 1e3
+        if e.device_type() == DeviceType.CUDA and us > 0:
+            calls_us = by_name.setdefault(e.name(), [0, 0.0])
+            calls_us[0] += 1
+            calls_us[1] += us
+    events = sorted(((k, c, us) for k, (c, us) in by_name.items()),
+                    key=lambda e: e[2], reverse=True)
+    return wall, sum(e[2] for e in events) / 1e6, events
 
 
 def log_profile(label: str, what: str, wall: float, busy: float,
@@ -274,9 +322,9 @@ def log_profile(label: str, what: str, wall: float, busy: float,
     log(f"profile {label}: {what} {wall:.4f} s under the profiler, device "
         f"busy {busy:.4f} s = {busy / wall:.3f} of the window"
         + ("" if events else " (the trace holds no device time)"))
-    for e in events[:TOP]:
-        log(f"  {device_us(e) / 1e3:10.3f} ms {e.count:7d} calls "
-            f"{device_us(e) / 1e6 / busy:6.3f}  {e.key[:80]}")
+    for key, calls, us in events[:TOP]:
+        log(f"  {us / 1e3:10.3f} ms {calls:7d} calls "
+            f"{us / 1e6 / busy:6.3f}  {key[:80]}")
 
 
 def profile_round(torch, run, label: str, what: str = "round") -> None:
@@ -707,6 +755,30 @@ def f1_scores(np, emb, labels, seed=0):
     return float(micro), float(np.mean(f1s))
 
 
+def check_loss(np, losses, rounds, label: str, batch: int = 1024) -> None:
+    """The loss of a run over ``rounds`` (walk arrays of one shape) is
+    finite, has one value a step, and falls within each round: its last 5%
+    window at most C_FALL of its first."""
+    from repro_torch.train.pairs import num_pairs
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: the loss is not finite")
+    # every round has the same shape, so the same number of steps
+    per_round = -(-num_pairs(*rounds[0].shape, 10) // batch)
+    if len(losses) != len(rounds) * per_round:
+        raise AssertionError(f"{label}: {len(losses)} losses for "
+                             f"{len(rounds)} rounds of {per_round} steps")
+    for r, part in enumerate(losses.reshape(len(rounds), per_round)):
+        win = max(1, per_round // 20)
+        curve = [float(part[i:i + win].mean())
+                 for i in range(0, per_round - win + 1, win)]
+        log(f"{label}: round {r} loss over 5% windows: "
+            f"{' '.join(f'{x:.4f}' for x in curve)}")
+        if not curve[-1] <= C_FALL * curve[0]:
+            raise AssertionError(f"{label}: round {r}'s loss ends at "
+                                 f"{curve[-1]}, above {C_FALL} x its start "
+                                 f"{curve[0]}")
+
+
 def path_c(np, torch, pg, walkers_every: int = C_EVERY,
            rounds: int = C_ROUNDS, length: int = LENGTH):
     """Main path C: the streamed trainer with the fused SGNS kernel over
@@ -716,7 +788,6 @@ def path_c(np, torch, pg, walkers_every: int = C_EVERY,
     from repro_torch.engine import WalkEngine, WalkPlan, round_seed
     from repro_torch.kernels import node2vec_step as K
     from repro_torch.kernels import sgns as S
-    from repro_torch.train.pairs import num_pairs
     from repro_torch.train.stream import StreamingSGNSTrainer
 
     kw = dict(vocab=pg.n, dim=128, window=10, negatives=5, batch_size=1024,
@@ -746,28 +817,12 @@ def path_c(np, torch, pg, walkers_every: int = C_EVERY,
     if K.node2vec_step.launches != rounds * (length - 1):
         raise AssertionError(f"C: node2vec_step launched "
                              f"{K.node2vec_step.launches} times")
-    losses = trainer.loss_history()
-    if not np.all(np.isfinite(losses)):
-        raise AssertionError("C: the loss is not finite")
-    # every round has the same shape, so the same number of steps
-    per_round = -(-num_pairs(len(starts), length, 10) // 1024)
-    if len(losses) != rounds * per_round:
-        raise AssertionError(f"C: {len(losses)} losses for {rounds} rounds "
-                             f"of {per_round} steps")
     log(f"C: {len(starts)} walkers x {length} x {rounds} rounds, V={pg.n} "
         f"D=128 K=5 B=1024: {st.steps} steps in {st.wall_seconds:.3f} s = "
         f"{st.steps / st.wall_seconds:.4g} steps/s, "
         f"{st.pairs_per_sec:.4g} pairs/s; sgns_fused launches {launches} "
         f"== steps")
-    for r, part in enumerate(losses.reshape(rounds, per_round)):
-        win = max(1, per_round // 20)
-        curve = [float(part[i:i + win].mean())
-                 for i in range(0, per_round - win + 1, win)]
-        log(f"C: round {r} loss over 5% windows: "
-            f"{' '.join(f'{x:.4f}' for x in curve)}")
-        if not curve[-1] <= C_FALL * curve[0]:
-            raise AssertionError(f"C: round {r}'s loss ends at {curve[-1]}, "
-                                 f"above {C_FALL} x its start {curve[0]}")
+    check_loss(np, trainer.loss_history(), kept, "C")
     log(f"C: {st}")
     t0 = time.perf_counter()
     replay = StreamingSGNSTrainer(**kw)
@@ -821,6 +876,395 @@ def path_c(np, torch, pg, walkers_every: int = C_EVERY,
         f"entry's; jnp {rates['jnp']:.4g} steps/s")
     del tables
     return trainer, kept, launches
+
+
+def cut_grid(ST, steps: int):
+    """Keep only the first ``steps`` rows of every step grid the trainer
+    draws (``train.stream._perm_batches``): its first ``steps`` optimizer
+    steps, bit for bit. Returns the function that puts it back."""
+    orig = ST._perm_batches
+
+    def cut(*args):
+        return orig(*args)[:steps]
+    ST._perm_batches = cut
+
+    def done() -> None:
+        ST._perm_batches = orig
+    return done
+
+
+def f64_row_grads(SH, S):
+    """G1's control: the sharded epoch's row grads
+    (``train.shard.sgns_row_grads``) computed in float64 and rounded once
+    to float32. Returns the function that puts the float32 ones back."""
+    orig = SH.sgns_row_grads
+
+    def f64(ci, po, no, valid, backend):
+        return tuple(t.float() for t in S.sgns_fused_plain(
+            ci.double(), po.double(), no.double(), valid.double()))
+    SH.sgns_row_grads = f64
+
+    def done() -> None:
+        SH.sgns_row_grads = orig
+    return done
+
+
+def table_gap(torch, a: dict, b: dict) -> float:
+    """Largest |a - b| over both SGNS tables (on the host)."""
+    return max(float((a[k].cpu() - b[k].cpu()).abs().max())
+               for k in ("emb_in", "emb_out"))
+
+
+def start_g1_cpu(np, walks, kw: dict):
+    """Start G1's CPU half (:func:`g1_cpu`) in a worker process that sees
+    no card, on the rounds ``walks`` and the trainer settings ``kw``: it
+    trains beside the card's paths and is read by :func:`g1_cpu_gates`."""
+    shutil.rmtree(G1_WORK, ignore_errors=True)
+    G1_WORK.mkdir(parents=True)
+    np.save(G1_WORK / "walks.npy", np.stack(walks))
+    (G1_WORK / "kw.json").write_text(json.dumps(kw))
+    with open(G1_WORK / "worker.log", "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--g1-cpu",
+             str(G1_WORK)], stdout=out, stderr=subprocess.STDOUT,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                 "OMP_NUM_THREADS": str(G1_CPU_THREADS),
+                 "OMP_WAIT_POLICY": "PASSIVE"})
+    CHILDREN.append(proc)
+    return proc, time.perf_counter()
+
+
+def g1_cpu(np, torch, work: Path) -> None:
+    """The worker's body: the sharded trainer on the CPU after its first
+    G_CPU_STEPS steps and after each round, and the control (the same
+    with its row grads rounded once from float64) beside it; writes the
+    CPU's tables to ``cpu.pt`` and the control's gaps to the CPU's to
+    ``control.json`` in ``work``."""
+    from repro_torch.kernels import sgns as S
+    from repro_torch.train import shard as SH
+    from repro_torch.train import stream as ST
+    os.nice(10)          # the card's paths' host threads come first
+    torch.set_num_threads(G1_CPU_THREADS)
+    kw = json.loads((work / "kw.json").read_text())
+    walks = list(np.load(work / "walks.npy"))
+
+    def consume(tr, w, f64: bool) -> None:
+        back = f64_row_grads(SH, S) if f64 else (lambda: None)
+        try:
+            tr.consume(w)
+        finally:
+            back()
+    done = cut_grid(ST, G_CPU_STEPS)
+    try:
+        cut = {}
+        for name in ("cpu", "f64"):
+            tr = ST.StreamingSGNSTrainer(**kw, device="cpu")
+            consume(tr, walks[0], name == "f64")
+            cut[name] = tr.params
+    finally:
+        done()
+    tables = [cut["cpu"]]
+    control = [table_gap(torch, cut["f64"], cut["cpu"])]
+    cpu = ST.StreamingSGNSTrainer(**kw, device="cpu")
+    ctl = ST.StreamingSGNSTrainer(**kw, device="cpu")
+    for w in walks:
+        consume(cpu, w, False)
+        consume(ctl, w, True)
+        tables.append(cpu.params)
+        control.append(table_gap(torch, ctl.params, cpu.params))
+    torch.save(tables, work / "cpu.pt")
+    (work / "control.json").write_text(json.dumps(control))
+
+
+def g1_cpu_gates(torch, g1: dict) -> None:
+    """Wait for G1's worker and hold the card's tables to the CPU's: within
+    G_CPU_TOL after G_CPU_STEPS steps, and at that reading and after each
+    round within G_ORDER_FACTOR of the control's gap to the CPU."""
+    proc, started = g1["worker"]
+    try:
+        rc = proc.wait(timeout=G1_CPU_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise AssertionError(f"G1: the CPU worker ran past "
+                             f"{G1_CPU_WAIT_S} s")
+    if rc:
+        tail = (G1_WORK / "worker.log").read_text()[-3000:]
+        raise AssertionError(f"G1: the CPU worker exited with {rc}:\n{tail}")
+    waited = time.perf_counter() - started
+    cpu = torch.load(G1_WORK / "cpu.pt")
+    control = json.loads((G1_WORK / "control.json").read_text())
+    card_gaps = [table_gap(torch, c, t) for c, t in zip(g1["card"], cpu)]
+    shutil.rmtree(G1_WORK, ignore_errors=True)
+    readings = (f"card vs CPU max |diff| after the first {G_CPU_STEPS} "
+                f"steps, then after each round: "
+                f"{', '.join(f'{x:.3g}' for x in card_gaps)}; the control "
+                f"(the CPU's row grads rounded once from float64) vs CPU: "
+                f"{', '.join(f'{x:.3g}' for x in control)}")
+    if not card_gaps[0] <= G_CPU_TOL:
+        raise AssertionError(f"G1: {readings}: above {G_CPU_TOL} after "
+                             f"{G_CPU_STEPS} steps")
+    if len(card_gaps) != len(control) or not all(
+            g <= G_ORDER_FACTOR * c for g, c in zip(card_gaps, control)):
+        raise AssertionError(f"G1: {readings}: the card is more than "
+                             f"{G_ORDER_FACTOR}x the control's rounding gap")
+    log(f"G1: {readings}; card <= {G_CPU_TOL} after {G_CPU_STEPS} steps "
+        f"and <= {G_ORDER_FACTOR}x the control at each reading (the CPU "
+        f"worker, {G1_CPU_THREADS} threads, done {waited:.2f} s after it "
+        f"started)")
+
+
+def path_g1(np, torch, walks, dense) -> dict:
+    """Path G1: the sharded trainer (lazy row-Adam on each batch's unique
+    rows, ``sgns_fused``'s row entry through ``sgns_row_grads``) at path
+    C's width over path C's rounds ``walks``; ``dense`` is path C's
+    trained dense trainer."""
+    from repro_torch.core import skipgram as SG
+    from repro_torch.kernels import sgns as S
+    from repro_torch.train import stream as ST
+
+    kw = dict(vocab=dense.vocab, dim=128, window=10, negatives=5,
+              batch_size=1024, lr=0.025, epochs=1, sgns_backend="fused",
+              shard_tables=True)
+    worker = start_g1_cpu(np, walks, kw)
+    trainer = ST.StreamingSGNSTrainer(**kw, device=DEV)
+    # an epoch never writes the tables it is handed, so the tables after
+    # each round are kept by reference
+    after = []
+
+    def source():
+        for r, w in enumerate(walks):
+            if r:   # round r - 1 has been trained
+                after.append(trainer.params)
+            yield w
+
+    S.sgns_fused.launches = 0
+    tables = count_calls(SG, "sgns_fused_tables")
+    try:
+        _, st = trainer.train(source())
+    finally:
+        table_calls = tables()
+    launches = S.sgns_fused.launches
+    after.append(trainer.params)
+    if launches != st.steps or st.steps == 0 or table_calls:
+        raise AssertionError(f"G1: the row entry launched {launches} times "
+                             f"for {st.steps} steps, the table entry was "
+                             f"called {table_calls} times")
+    log(f"G1: sharded (lazy row-Adam), {len(walks[0])} walkers x "
+        f"{walks[0].shape[1]} x {len(walks)} rounds, V={dense.vocab} D=128 "
+        f"K=5 B=1024, u_in {trainer._u_in} u_out {trainer._u_out}: "
+        f"{st.steps} steps in {st.wall_seconds:.3f} s = "
+        f"{st.steps / st.wall_seconds:.4g} steps/s; sgns_fused row-entry "
+        f"launches {launches} == steps, table entry called 0 times")
+    check_loss(np, trainer.loss_history(), walks, "G1")
+
+    t0 = time.perf_counter()
+    replay = ST.StreamingSGNSTrainer(**kw, device=DEV)
+    replay.consume(walks[0])
+    if not all(torch.equal(replay.params[k], after[0][k])
+               for k in ("emb_in", "emb_out")):
+        raise AssertionError("G1: concat replay of round 0 differs from the "
+                             "streamed run")
+    log(f"G1: concat replay of round 0 == streamed tables after round 0 "
+        f"({time.perf_counter() - t0:.2f} s)")
+    del replay
+
+    # the card after its first G_CPU_STEPS steps; the CPU's readings come
+    # from the worker started above
+    done = cut_grid(ST, G_CPU_STEPS)
+    try:
+        tr = ST.StreamingSGNSTrainer(**kw, device=DEV)
+        tr.consume(walks[0])
+    finally:
+        done()
+    card = [_to_cpu(t) for t in [tr.params] + after]
+    del tr
+    gap = table_gap(torch, trainer.params, dense.params)
+    if not gap > 1e-3:
+        raise AssertionError(f"G1: the sharded tables are within {gap} of "
+                             f"path C's dense ones")
+    log(f"G1: sharded vs dense path C tables: max |diff| {gap:.4g} (lazy "
+        f"row-Adam is another optimizer)")
+
+    # sharded and dense in turns on fresh trainers (host rates drift)
+    rates = {}
+    for name in ("sharded", "dense", "dense", "sharded"):
+        tr = ST.StreamingSGNSTrainer(**{**kw, "shard_tables":
+                                        name == "sharded"}, device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.consume(walks[0][:C_PROFILE_WALKERS])
+        tr.loss_history()                       # waits for the last step
+        rates.setdefault(name, []).append(
+            tr.recorder.steps / (time.perf_counter() - t0))
+        del tr
+    each = {k: " / ".join(f"{x:.4g}" for x in v) for k, v in rates.items()}
+    rates = {k: sum(v) / len(v) for k, v in rates.items()}
+    log(f"G1: the same {C_PROFILE_WALKERS} walkers of round 0 on fresh "
+        f"trainers, in the order sharded, dense, dense, sharded: sharded "
+        f"{rates['sharded']:.4g} steps/s ({each['sharded']}), dense "
+        f"{rates['dense']:.4g} steps/s ({each['dense']})")
+    profile_round(torch, lambda: trainer.consume(
+        walks[0][:C_PROFILE_WALKERS]), "G1 sharded SGNS", "~200 steps")
+    return {"launches": launches, "steps": st.steps, "rates": rates,
+            "worker": worker, "card": card}
+
+
+def timed(owner, name: str, calls: dict, label: str):
+    """Wrap ``owner.name`` (a module's function or a class's method) so
+    that each call appends (host seconds, result) to ``calls[label]``;
+    returns the function that puts the original back."""
+    raw = vars(owner)[name]
+    orig = getattr(owner, name)
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        calls.setdefault(label, []).append((time.perf_counter() - t0, out))
+        return out
+    setattr(owner, name, staticmethod(wrapped)
+            if isinstance(raw, staticmethod) else wrapped)
+
+    def done() -> None:
+        setattr(owner, name, raw)
+    return done
+
+
+def launcher_run(torch, argv) -> dict:
+    """``repro_torch.launch.train.main(argv)`` in this process, with the
+    host seconds of its stages, the trainer's stats, the checkpoints saved
+    and the row entry's launches."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.core.graph import PaddedGraph
+    from repro_torch.data import ingest
+    from repro_torch.kernels import sgns as S
+    from repro_torch.launch import train as LT
+    from repro_torch.train.stream import StreamingSGNSTrainer
+
+    calls: dict = {}
+    undo = [timed(ingest, "edgelist_to_csr", calls, "parse and build"),
+            timed(ingest, "relabel_by_degree", calls, "relabel"),
+            timed(ingest, "save_csr", calls, "cache write"),
+            timed(PaddedGraph, "build", calls, "layout build"),
+            timed(StreamingSGNSTrainer, "train", calls, "train"),
+            timed(Checkpointer, "save", calls, "checkpoint")]
+    S.sgns_fused.launches = 0
+    t0 = time.perf_counter()
+    try:
+        emb = LT.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for fn in undo:
+            fn()
+    (_, (_, st)), = calls["train"]
+    return {"emb": emb, "seconds": time.perf_counter() - t0, "stats": st,
+            "launches": S.sgns_fused.launches,
+            "saves": len(calls.get("checkpoint", [])),
+            "stages": {k: sum(t for t, _ in v) for k, v in calls.items()
+                       if k not in ("train", "checkpoint")}}
+
+
+def path_g2(np, torch, tmp: Path) -> dict:
+    """Path G2: the launcher end to end on an on-disk edge list: G2_SPEC
+    written once per undirected edge, built with relabel=degree into a
+    CSR cache, walked, trained sharded with the row entry, then resumed."""
+    from repro_torch.data import ingest
+    from repro_torch.data.store import open_graph
+    from repro_torch.train.shard import pow2_bucket
+
+    t0 = time.perf_counter()
+    g = open_graph(G2_SPEC).graph
+    gen = time.perf_counter() - t0
+    rows = np.repeat(np.arange(g.n), np.diff(g.row_ptr))
+    once = rows < g.col
+    text = tmp / "edges.txt"
+    t0 = time.perf_counter()
+    ingest.write_edgelist(str(text), rows[once], g.col[once], g.wgt[once])
+    write_s = time.perf_counter() - t0
+    spec = f"edgelist:{text},relabel=degree"
+    cache, ckpt = tmp / "cache", tmp / "ckpt"
+    argv = ["--task", "node2vec", "--graph", spec, "--graph-cache",
+            str(cache), "--p", "1", "--q", "0.5",
+            "--rounds", str(G2_ROUNDS),
+            "--walk-length", str(LENGTH), "--dim", "128", "--window", "10",
+            "--negatives", "5", "--sgns-batch", str(G_BATCH),
+            "--sgns-backend", "fused", "--shard-tables", "--ckpt-dir",
+            str(ckpt), "--device", DEV]
+    log(f"G2: {G2_SPEC} (n={g.n}, m={g.m}, generated in {gen:.2f} s) "
+        f"written as {int(once.sum())} undirected lines "
+        f"({text.stat().st_size} bytes) in {write_s:.2f} s host; "
+        f"launcher: {' '.join(argv)}")
+    first = launcher_run(torch, argv)
+
+    # the cache holds relabel_by_degree of the in-memory graph
+    sub, = (p for p in cache.iterdir() if p.is_dir())
+    want, perm = ingest.relabel_by_degree(g)
+    for name, arr in (("indptr", want.row_ptr), ("col", want.col),
+                      ("wgt", want.wgt), ("perm", perm)):
+        got = np.load(sub / f"{name}.npy")
+        if got.dtype != arr.dtype or not np.array_equal(got, arr):
+            raise AssertionError(f"G2: the cached {name}.npy differs from "
+                                 f"relabel_by_degree of {G2_SPEC}")
+    builders = [count_calls(ingest, "edgelist_to_csr"),
+                count_calls(ingest, "relabel_by_degree")]
+    t0 = time.perf_counter()
+    try:
+        hit = open_graph(spec, cache_dir=str(cache))
+    finally:
+        built = sum(done() for done in builders)
+    open_ms = (time.perf_counter() - t0) * 1e3
+    if built or not isinstance(hit.graph.col, np.memmap) or \
+            not isinstance(hit.graph.row_ptr, np.memmap):
+        raise AssertionError(f"G2: the cached open called a builder "
+                             f"{built} times or gave arrays not "
+                             f"memmap-backed")
+    del hit
+
+    st, emb = first["stats"], first["emb"]
+    if first["launches"] != st.steps or st.steps == 0:
+        raise AssertionError(f"G2: the row entry launched "
+                             f"{first['launches']} times for {st.steps} "
+                             f"steps")
+    saved = np.load(ckpt / "embeddings.npy")
+    norms = np.linalg.norm(saved, axis=1)
+    if saved.shape != (g.n, 128) or not np.all(np.isfinite(saved)) or \
+            not np.allclose(norms, 1.0, rtol=0, atol=1e-5) or \
+            not np.array_equal(saved, emb):
+        raise AssertionError(f"G2: embeddings.npy {saved.shape} not finite "
+                             f"and unit-norm (|norm - 1| up to "
+                             f"{float(np.abs(norms - 1).max())})")
+    again = launcher_run(torch, argv)
+    resumed = np.load(ckpt / "embeddings.npy")
+    if again["saves"] or first["saves"] != G2_ROUNDS or \
+            again["launches"] != again["stats"].steps or \
+            not np.array_equal(resumed, saved):
+        raise AssertionError(f"G2: the resumed run saved {again['saves']} "
+                             f"checkpoints (the first {first['saves']}) or "
+                             f"wrote other embeddings")
+    u_in, u_out = pow2_bucket(G_BATCH), pow2_bucket(G_BATCH * 6)
+    stages = {"text write": write_s, **first["stages"],
+              "cached open": open_ms / 1e3,
+              "walks (exposed)": st.walk_wait_seconds,
+              "training": st.train_seconds}
+    log(f"G2: host seconds by stage: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; the launcher {first['seconds']:.2f} s in all")
+    log(f"G2: cached open {open_ms:.1f} ms host, no builder called, "
+        f"memmap-backed; cache == relabel_by_degree of {G2_SPEC} (indptr, "
+        f"col, wgt, perm)")
+    log(f"G2: {st.steps} steps in {st.train_seconds:.3f} s = "
+        f"{st.steps / st.train_seconds:.4g} steps/s, {st.pairs_per_sec:.4g} "
+        f"pairs/s; row-entry launches {first['launches']} == steps; "
+        f"unique buffers u_in {u_in} ({u_in * 128 * 4} bytes a table "
+        f"buffer), u_out {u_out} ({u_out * 128 * 4} bytes, "
+        f"{u_out / g.n:g}x the vocab)")
+    log(f"G2: embeddings.npy {saved.shape}, finite, unit norm within "
+        f"{float(np.abs(norms - 1).max()):.3g}; resumed from {G2_ROUNDS} "
+        f"checkpointed round(s) (0 saved, {again['launches']} launches, "
+        f"{again['seconds']:.2f} s, stages " + ", ".join(
+            f"{k} {v:.3f}" for k, v in again["stages"].items())
+        + "): the same embeddings.npy")
+    return {"launches": first["launches"], "steps": st.steps,
+            "stages": stages}
 
 
 def graph_ms(torch, fn, reps: int) -> float:
@@ -1484,8 +1928,7 @@ def path_f(np, torch, K, store, table) -> dict:
         # activity only), which the stats include
         t1 = time.perf_counter()
         p_wall, p_busy, p_events = profiled(
-            torch, lambda: replay(trace[half:half + F_PROFILED], 1),
-            cpu=False)
+            torch, lambda: replay(trace[half:half + F_PROFILED], 1))
         replay(trace[half + F_PROFILED:], 1)
         torch.cuda.synchronize()
         wall += time.perf_counter() - t1
@@ -1614,6 +2057,11 @@ def log_report(report: str, lib: str) -> None:
             log(f"  {lib} {kernel}: {line.strip()}")
 
 
+def since(t_start: float, what: str) -> None:
+    log(f"-- {what} done, {time.perf_counter() - t_start:.1f} s since the "
+        f"start")
+
+
 def count_calls(module, name: str):
     """Wrap ``module.name`` in a counter; the returned function puts the
     original back and returns the count."""
@@ -1640,11 +2088,16 @@ def drive(torch, engine, rounds: int):
 
 
 def main(argv) -> int:
-    if argv not in ([], ["--walks"]):
+    worker = len(argv) == 2 and argv[0] == "--g1-cpu"
+    if argv not in ([], ["--walks"]) and not worker:
         print("usage: python3 chip_smoke.py [--walks]", file=sys.stderr)
         return 2
     import numpy as np
     import torch
+    if worker:   # G1's CPU half, started by the script itself
+        sys.path.insert(0, str(SRC))
+        g1_cpu(np, torch, Path(argv[1]))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1693,6 +2146,7 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     flash_err = check_flash(np, torch, FA)
+    since(t_start, "phase 1")
 
     # ---- main path A: per-step kernel, FN-Cache ------------------------
     spec_a = A_SPEC
@@ -1808,6 +2262,7 @@ def main(argv) -> int:
         f"{step['plain_rows_ms']:.4f} ms")
     store_a = first.store                     # path F serves this graph
     del first, fused, ref, walks, ref_walks, cand, cw, prev
+    since(t_start, "path A")
 
     # ---- main path C: streamed SGNS with the fused kernel --------------
     trainer, c_walks, sgns_launches = path_c(np, torch, pg_a)
@@ -1817,6 +2272,11 @@ def main(argv) -> int:
     sgns_err = max(sgns_err, sg["err"], bw["err"])
     profile_round(torch, lambda: trainer.consume(
         c_walks[0][:C_PROFILE_WALKERS]), "C fused SGNS", "~200 steps")
+    since(t_start, "path C")
+
+    # ---- path G1: the sharded trainer at path C's width ----------------
+    g1 = path_g1(np, torch, c_walks, trainer)
+    since(t_start, "path G1")
     table_c = serving_table(trainer.params)    # path F's table
     del trainer, c_walks, pg_a
 
@@ -1824,6 +2284,7 @@ def main(argv) -> int:
     walk = walk_phase(np, torch, K, B_SPEC, "B", profile=True)
     wide = walk_phase(np, torch, K, A_SPEC, WIDE)
     walk_err = max(walk_err, walk["err"], wide["err"])
+    since(t_start, "path B")
 
     # ---- path D: train_streamed end to end, card vs CPU ----------------
     t0 = time.perf_counter()
@@ -1839,16 +2300,33 @@ def main(argv) -> int:
         f"{micro_cpu:.4f} macro-F1 {macro_cpu:.4f}")
     if abs(micro - micro_cpu) > D_F1_GAP:
         raise AssertionError(f"D: micro-F1 card {micro} vs CPU {micro_cpu}")
+    since(t_start, "path D")
 
     # ---- path E: LM serving, flash_attention at every prefill layer ----
     torch.cuda.empty_cache()
     flash_launches, err, fl = path_e(np, torch, lm_walks, one_rounding)
     flash_err = max(flash_err, err)
     del lm_walks
+    since(t_start, "path E")
     torch.cuda.empty_cache()
 
     # ---- path F: embedding serving with churn, step kernel per superstep
     f = path_f(np, torch, K, store_a, table_c)
+    since(t_start, "path F")
+    del store_a, table_c
+    torch.cuda.empty_cache()
+
+    # ---- path G2: the training launcher on an on-disk edge list --------
+    scratch = ROOT / "build" / "chip_smoke_g2"
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+    try:
+        g2 = path_g2(np, torch, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    since(t_start, "path G2")
+    g1_cpu_gates(torch, g1)
+    since(t_start, "G1's CPU readings")
 
     kernels = [
         {"name": "node2vec_step", "route": "cuda", "source": CU_SOURCE,
@@ -1877,7 +2355,8 @@ def main(argv) -> int:
          "launches": sgns_launches, "max_abs_err": sgns_err,
          "ms": sg["ms_host"], "plain_ms": sg["plain_ms"],
          "bound_ms": sg["bound"][0], "bound_by": sg["bound"][1],
-         "library_ms": None, "ms_host": sg["ms_host"],
+         "library_ms": None, "launches_row_entry": g1["launches"],
+         "launches_launcher": g2["launches"], "ms_host": sg["ms_host"],
          "ms_device": sg["ms_device"], "ms_old": sg["ms_old"],
          "ms_old_device": sg["ms_old_device"],
          "ms_rows_entry": sg["ms_rows_entry"],
@@ -1906,6 +2385,7 @@ def main(argv) -> int:
          "bound_ms_32k": fl["bound_32k"][0],
          "bound_by_32k": fl["bound_32k"][1]},
     ]
+    log(f"card: {smi}")       # again, where the output's tail keeps it
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1915,4 +2395,10 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    try:
+        sys.exit(main(sys.argv[1:]))
+    finally:
+        for child in CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()

@@ -7,6 +7,7 @@ graph::
     store.graph            # host CSRGraph (the current version)
     store.version          # delta counter, 0 at open
     store.apply(deltas)    # patch in a DeltaBatch -> PatchReport, version += 1
+    store.save(dirpath)    # a "csr:" directory that reopens at this version
 
 It accepts a spec string, a :class:`CSRGraph`, a
 :class:`~repro_torch.data.ingest.Dataset` or a store (returned as is), so
@@ -19,13 +20,15 @@ recomputed after deltas (reopen to re-rank).
 """
 from __future__ import annotations
 
+import os
 from typing import Iterable, Optional, Union
 
 import numpy as np
 
 from repro_torch.core.graph import CSRGraph
 from repro_torch.data.deltas import DeltaBatch, PatchReport, apply_delta_csr
-from repro_torch.data.ingest import Dataset, load_dataset
+from repro_torch.data.ingest import (Dataset, csr_meta, load_dataset,
+                                     parse_spec, save_csr)
 
 DEFAULT_PATCH_SHARDS = 64
 
@@ -40,14 +43,15 @@ class GraphStore:
     """
 
     def __init__(self, dataset: Dataset, *,
-                 num_shards: int = DEFAULT_PATCH_SHARDS) -> None:
+                 num_shards: int = DEFAULT_PATCH_SHARDS,
+                 version: int = 0) -> None:
         self._graph = dataset.graph
         self.spec = dataset.spec
         self.labels = dataset.labels
         self.perm = None if dataset.perm is None \
             else np.asarray(dataset.perm, np.int64)
         self.num_shards = max(1, int(num_shards))
-        self.version = 0
+        self.version = int(version)
         self.last_report: Optional[PatchReport] = None
 
     @property
@@ -86,14 +90,26 @@ class GraphStore:
         return report
 
     def save(self, dirpath: str) -> str:
-        raise NotImplementedError(
-            "GraphStore.save needs save_csr, which is not ported yet: it is "
-            "ROADMAP.md Queue 1 item 6 (Full ingest and graph handle)")
+        """Persist the current version as a ``csr:`` directory (graph,
+        version, and the perm/labels sidecars);
+        ``open_graph(f"csr:{dirpath}")`` restores the store at the same
+        version."""
+        save_csr(self._graph, dirpath, graph_version=self.version)
+        if self.perm is not None:
+            np.save(os.path.join(dirpath, "perm.npy"), self.perm)
+        if self.labels is not None:
+            np.save(os.path.join(dirpath, "labels.npy"),
+                    np.asarray(self.labels))
+        return dirpath
 
 
-def open_graph(source, *,
+def open_graph(source, cache_dir: Optional[str] = None, *,
                num_shards: int = DEFAULT_PATCH_SHARDS) -> GraphStore:
-    """Open a spec string, CSRGraph, Dataset or GraphStore as a store."""
+    """Open a spec string, CSRGraph, Dataset or GraphStore as a store.
+
+    ``cache_dir`` is forwarded to the edgelist builder (build once, memmap
+    thereafter). A ``csr:`` directory written by :meth:`GraphStore.save`
+    reopens at its saved version with its perm and labels."""
     if isinstance(source, GraphStore):
         return source
     if isinstance(source, Dataset):
@@ -105,4 +121,20 @@ def open_graph(source, *,
         raise TypeError(
             f"open_graph wants a spec string, CSRGraph, Dataset, or "
             f"GraphStore; got {type(source).__name__}")
-    return GraphStore(load_dataset(source), num_shards=num_shards)
+    ds = load_dataset(source, cache_dir=cache_dir)
+    version = 0
+    family, arg, _ = parse_spec(source)
+    if family == "csr" and arg is not None:
+        version = int(csr_meta(arg).get("graph_version", 0))
+        ds = Dataset(graph=ds.graph, spec=ds.spec,
+                     labels=_sidecar(arg, "labels", ds.labels),
+                     perm=_sidecar(arg, "perm", ds.perm))
+    return GraphStore(ds, num_shards=num_shards, version=version)
+
+
+def _sidecar(dirpath: str, name: str, have):
+    """``have``, else ``<dirpath>/<name>.npy`` where it exists, else None."""
+    path = os.path.join(dirpath, f"{name}.npy")
+    if have is not None or not os.path.exists(path):
+        return have
+    return np.load(path)

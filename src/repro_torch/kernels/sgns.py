@@ -11,10 +11,14 @@
   division passes (``core.skipgram.sgns_grads``' fused backend). Its
   launches count in ``sgns_fused.launches``.
 
-Both take the unpadded contract (any ``B >= 0``, ``K >= 1``, ``D >= 1``)
-and are bound by device-memory bytes. A CUDA tensor launches the kernel, a
-CPU tensor runs the plain version beside it (``*_plain``), anything else
-raises. A call makes two device allocations: one for the grads and the
+:func:`sgns_row_grads` is the row-level SGNS step of the sharded trainer
+(``repro_torch.train.shard``): ``"fused"`` runs the row entry, ``"jnp"``
+the closed form beside it.
+
+Both entries take the unpadded contract (any ``B >= 0``, ``K >= 1``,
+``D >= 1``) and are bound by device-memory bytes. A CUDA tensor launches
+the kernel, a CPU tensor runs the plain version beside it (``*_plain``),
+anything else raises. A call makes two device allocations: one for the grads and the
 per-block loss partials, and one for the loss alone, so that a caller who
 keeps the loss (a trainer's per-step history) does not keep the grads.
 The completion counter that lets the last block sum the loss is allocated
@@ -141,6 +145,24 @@ def sgns_fused(ci: torch.Tensor, po: torch.Tensor, no: torch.Tensor,
 
 
 sgns_fused.launches = 0
+
+
+def sgns_row_grads(ci: torch.Tensor, po: torch.Tensor, no: torch.Tensor,
+                   valid: torch.Tensor, backend: str = "jnp"):
+    """Loss (masked *sum*) and per-row gradients for gathered SGNS rows —
+    port of ``repro.kernels.sgns.sgns_row_grads``: no table scatter, the
+    caller owns where the rows live. ``backend="fused"`` runs
+    :func:`sgns_fused`; ``"jnp"`` (the JAX package's name) is the closed
+    form the kernel computes, :func:`sgns_fused_plain`.
+
+    ci, po [B, D]; no [B, K, D]; valid [B] float32. Returns (loss_sum,
+    g_ci [B, D], g_po [B, D], g_no [B, K, D]).
+    """
+    if backend == "fused":
+        return sgns_fused(ci, po, no, valid)
+    if backend != "jnp":
+        raise ValueError(f"sgns backend must be jnp|fused, got {backend!r}")
+    return sgns_fused_plain(ci, po, no, valid)
 
 
 def _empty(k: int, d: int, dev: torch.device):

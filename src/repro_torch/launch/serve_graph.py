@@ -24,7 +24,7 @@ from repro_torch.serve import EmbeddingService, ServeStats, synthetic_trace
 
 
 def build_service(args) -> EmbeddingService:
-    store = open_graph(args.graph)
+    store = open_graph(args.graph, cache_dir=args.graph_cache)
     g = store.graph
     print(f"graph: {args.graph} -> n={g.n} m={g.m} maxdeg={g.max_degree}")
     cfg = Node2VecConfig(walk_length=args.walk_length, num_walks=args.rounds,
@@ -90,6 +90,9 @@ def main(argv=None) -> ServeStats:
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--graph", default=None,
                     help="dataset spec (repro_torch.data.ingest registry)")
+    ap.add_argument("--graph-cache", default=None,
+                    help="CSR cache dir for edgelist specs (build once, "
+                         "memmap thereafter)")
     ap.add_argument("--dim", type=int, default=None)
     ap.add_argument("--cap", type=int, default=32,
                     help="FN-Cache cold row width (hot set = deg > cap)")

@@ -13,8 +13,7 @@ package's pytrees of one level). Nothing is updated in place: every call
 returns new tensors, as JAX does, so a state handed in is never changed.
 The step count is a 0-d int32 tensor on the parameters' device, and
 scalar hyper-parameters stay Python floats, so a step makes no host-device
-copy. ``adam_rows`` (lazy row-Adam) belongs to the sharded trainer and is
-not ported yet (ROADMAP.md Queue 1 item 9).
+copy.
 """
 from __future__ import annotations
 
@@ -127,6 +126,37 @@ def adam(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
 
     key = ("adam", lr, b1, b2, eps, weight_decay) \
         if not callable(lr) and mask is None else None
+    return Optimizer(init, update, key)
+
+
+def adam_rows(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
+              eps: float = 1e-8) -> Optimizer:
+    """Row-sparse ("lazy") Adam for embedding tables.
+
+    Moments live per table row and only the rows gathered for the current
+    batch move; untouched rows keep their moments frozen. ``init(params)``
+    matches :func:`adam`. ``update(g_rows, (mu_rows, nu_rows), count)``
+    works on gathered rows: ``count`` is the already-incremented step, and
+    it returns ``(row_updates, new_mu_rows, new_nu_rows)`` for the caller
+    to write back (the caller owns which rows).
+    """
+
+    def init(params):
+        return AdamState(_count(params), _map(torch.zeros_like, params),
+                         _map(torch.zeros_like, params))
+
+    def update(g_rows, rows_state, count):
+        mu_rows, nu_rows = rows_state
+        new_mu = b1 * mu_rows + (1 - b1) * g_rows
+        new_nu = b2 * nu_rows + (1 - b2) * (g_rows * g_rows)
+        c = count.to(torch.float32)
+        bc1 = 1 - torch.pow(np.float32(b1).item(), c)
+        bc2 = 1 - torch.pow(np.float32(b2).item(), c)
+        step_lr = _lr_at(lr, count - 1)
+        upd = -step_lr * (new_mu / bc1) / (torch.sqrt(new_nu / bc2) + eps)
+        return upd, new_mu, new_nu
+
+    key = ("adam_rows", lr, b1, b2, eps) if not callable(lr) else None
     return Optimizer(init, update, key)
 
 

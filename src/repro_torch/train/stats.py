@@ -50,10 +50,9 @@ class TrainStats:
                              stream/concat H2D ratio is deterministic.
     ``shards``             — table shards (1 = dense single-device tables).
     ``collective_bytes``   — analytic per-device bytes the sparse row
-                             gathers/updates moved across the mesh. Always
-                             0 here: the port's tables are dense on one
-                             device (sharding is ROADMAP.md Queue 1 item 9);
-                             the field keeps the JAX package's stats shape.
+                             gathers/updates moved across table shards
+                             (``train.shard.sgns_exchange_bytes``): 0 at
+                             the one shard the port runs today.
     ``exposed_collective_bytes`` — the part on the critical path. The
                              sparse gather is barrier-style inside each
                              step today, so exposed == total; the field

@@ -1,5 +1,5 @@
 """StreamingSGNSTrainer — train SGNS on each FN-Multi round as it arrives —
-port of ``repro.train.stream`` (dense tables).
+port of ``repro.train.stream``.
 
 The corpus never exists on the host:
 
@@ -17,8 +17,8 @@ The corpus never exists on the host:
 Streamed and concat consumption are bit-identical: every batch depends only
 on (round index, epoch, step index) and the cumulative corpus counts up to
 that round, never on arrival timing, and on the card every scatter is
-deterministic. ``shard_tables=True`` (the JAX package's mesh-partitioned
-tables) is ROADMAP.md Queue 1 item 9 and raises here.
+deterministic. ``shard_tables=True`` trains the tables with lazy row-Adam
+on each batch's unique rows (``repro_torch.train.shard``) at one process.
 """
 from __future__ import annotations
 
@@ -34,8 +34,11 @@ from repro_torch.core.alias import build_alias
 from repro_torch.core.skipgram import (SGNSConfig, init_params,
                                        normalize_embeddings, sgns_grads)
 from repro_torch.device import resolve_device
-from repro_torch.optim.optimizers import adam, apply_updates
+from repro_torch.optim.optimizers import adam, adam_rows, apply_updates
 from repro_torch.train.pairs import device_negatives, device_pairs, num_pairs
+from repro_torch.train.shard import (pow2_bucket, sgns_exchange_bytes,
+                                     shard_params, train_epoch_sharded,
+                                     world_shards)
 from repro_torch.train.stats import TrainRecorder, TrainStats
 
 
@@ -84,7 +87,13 @@ def _train_epoch(params, opt_state, c, x, valid, perm2d, prob, alias, key,
 class StreamingSGNSTrainer:
     """Consume per-round walk arrays as they complete; keep all corpus work
     on the device. One instance is one training run (params live across
-    rounds). Runs on the card unless given ``device="cpu"``."""
+    rounds). Runs on the card unless given ``device="cpu"``.
+
+    ``shard_tables=True`` trains with lazy row-Adam on each batch's unique
+    rows (``repro_torch.train.shard``): a different optimizer from the
+    dense default (untouched rows keep their moments), so compare it with
+    ``shard_tables=True`` runs, not with the dense path.
+    """
 
     def __init__(self, vocab: int, dim: int = 128, window: int = 10,
                  negatives: int = 5, batch_size: int = 1024,
@@ -92,10 +101,6 @@ class StreamingSGNSTrainer:
                  sgns_backend: str = "jnp", power: float = 0.75,
                  record_loss: bool = True, shard_tables: bool = False,
                  device=None):
-        if shard_tables:
-            raise NotImplementedError(
-                "shard_tables=True is not ported yet: it is ROADMAP.md "
-                "Queue 1 item 9 (Multi-device, torch.distributed)")
         self.device = resolve_device(device)
         self.vocab = vocab
         self.dim = dim
@@ -107,16 +112,25 @@ class StreamingSGNSTrainer:
         self.sgns_backend = sgns_backend
         self.power = power
         self.record_loss = record_loss
+        self.shard_tables = bool(shard_tables)
         scfg = SGNSConfig(vocab=vocab, dim=dim, negatives=negatives)
         self._key = jr.PRNGKey(seed, device=self.device)
         self.params = init_params(scfg, self._key)
-        self._opt = adam(lr)
+        if self.shard_tables:
+            self.shards = world_shards()
+            self.params = shard_params(self.params, vocab, self.shards)
+            self._opt = adam_rows(lr)
+            self._u_in = pow2_bucket(batch_size)
+            self._u_out = pow2_bucket(batch_size * (1 + negatives))
+        else:
+            self.shards = 1
+            self._opt = adam(lr)
         self.opt_state = self._opt.init(self.params)
         self._counts = np.zeros(vocab, np.float64)
         self._round = 0
         self._losses: list = []        # device tensors; fetched lazily
         self._pair_counts: list = []   # device scalars (valid pairs / round)
-        self.recorder = TrainRecorder(sgns_backend)
+        self.recorder = TrainRecorder(sgns_backend, shards=self.shards)
 
     @classmethod
     def from_config(cls, vocab: int, cfg, **overrides
@@ -162,19 +176,29 @@ class StreamingSGNSTrainer:
         for e in range(self.epochs):
             pkey, skey = jr.split(jr.fold_in(rkey, e))
             perm2d = _perm_batches(pkey, n_pairs, steps, self.batch_size)
-            self.params, self.opt_state, losses = _train_epoch(
-                self.params, self.opt_state, c, x, valid, perm2d, prob,
-                alias, skey, opt=self._opt, negatives=self.negatives,
-                backend=self.sgns_backend, n_pairs=n_pairs)
+            kw = dict(opt=self._opt, negatives=self.negatives,
+                      backend=self.sgns_backend, n_pairs=n_pairs)
+            if self.shard_tables:
+                self.params, self.opt_state, losses = train_epoch_sharded(
+                    self.params, self.opt_state, c, x, valid, perm2d, prob,
+                    alias, skey, u_in=self._u_in, u_out=self._u_out, **kw)
+            else:
+                self.params, self.opt_state, losses = _train_epoch(
+                    self.params, self.opt_state, c, x, valid, perm2d, prob,
+                    alias, skey, **kw)
             if self.record_loss:
                 self._losses.append(losses)
         self._round += 1
         # concat-equivalent H2D: the host path stages center/pos/neg (i32)
         # + valid (f32) per step; deterministic, so the ratio is exact
         per_step = 4 * self.batch_size * (3 + self.negatives)
+        coll = steps * self.epochs * sgns_exchange_bytes(
+            self._u_in + self._u_out, self.dim, self.shards) \
+            if self.shard_tables else 0
         self.recorder.round_trained(
             time.perf_counter() - t0, steps * self.epochs, 0, w * l,
-            walks.nbytes + alias_bytes, steps * self.epochs * per_step)
+            walks.nbytes + alias_bytes, steps * self.epochs * per_step,
+            collective_bytes=coll)
 
     # --------------------------------------------------------- training --
     def train(self, source: Iterable[np.ndarray],
@@ -201,7 +225,8 @@ class StreamingSGNSTrainer:
                ) -> Tuple[np.ndarray, TrainStats]:
         """Wait for the queued steps, fetch embeddings, freeze stats."""
         t0 = time.perf_counter()
-        emb = normalize_embeddings(self.params).cpu().numpy()
+        # [:vocab] strips the shard-padding rows
+        emb = normalize_embeddings(self.params).cpu().numpy()[:self.vocab]
         if self._pair_counts:
             self.recorder.pairs = int(sum(int(p) for p in self._pair_counts))
             self._pair_counts = [torch.tensor(self.recorder.pairs)]

@@ -201,7 +201,7 @@ def test_empty_batch_is_identity():
     _same_report(rep, jrep)
 
 
-def test_store_rejects_stale_batches_and_save():
+def test_store_rejects_stale_batches_and_save(tmp_path):
     st = open_graph(SMALL)
     st.apply(DeltaBatch.build(add=([0], [5]), base_version=0))
     with pytest.raises(ValueError, match="stale"):
@@ -211,5 +211,6 @@ def test_store_rejects_stale_batches_and_save():
     with pytest.raises(TypeError, match="DeltaBatch"):
         st.apply([("not", "a batch")])
     assert st.version == 1
-    with pytest.raises(NotImplementedError, match="item 6"):
-        st.save("unused")
+    back = open_graph(f"csr:{st.save(str(tmp_path / 'saved'))}")
+    assert back.version == 1
+    _same_csr(back.graph, st.graph)

@@ -295,8 +295,3 @@ def test_checkpointer_roundtrip(tmp_path):
     assert isinstance(got["opt"][1]["mu"], np.ndarray)
     old, meta = ck.restore(tree, step=1)
     assert torch.equal(old["emb"], tree["emb"]) and meta["round"] == 1
-
-
-def test_shard_tables_not_ported(graph):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        StreamingSGNSTrainer(graph.n, shard_tables=True, device="cpu")
