@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (walks, SGNS training, LM serving,
-embedding serving under graph churn, and the training launcher on an
-on-disk edge list) on one NVIDIA GPU.
+embedding serving under graph churn, the training launcher on an on-disk
+edge list, and the sharded walk backend and tables across a
+``torch.distributed`` world) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -142,6 +143,25 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    run on the same ``--ckpt-dir`` must resume from the checkpointed
    rounds and write the same ``embeddings.npy``; each stage's host
    seconds are printed.
+10. path H — the sharded (Pregel) walk backend and the sharded tables
+   across ``torch.distributed`` worlds, right after G1. H1: in this
+   process, a world of one over NCCL: ``WalkEngine.build(path A's layout,
+   WalkPlan(backend="sharded", cap=128, p=1, q=0.5, ...))`` in exact and
+   approx mode, the walks equal to path A's fused walks of the same seed,
+   0 drops, walker-steps/s and a profile. H2-H4 in two processes the
+   script starts (``python3 chip_smoke.py --h-rank R DIR``), both on the
+   one card in a gloo world (NCCL refuses two ranks on one card): H2 the
+   same walks exact, barrier and ``pipeline=True`` (both ranks' gathered
+   walks equal H1's, 0 drops) and at ``capacity="auto"`` (its drops and
+   ``WalkStats.collective_bytes`` beside the exchange's time, each
+   ``all_to_all`` timed from a synchronized card); H3 G1's sharded trainer
+   on path C's round 0 (row-entry launches == steps on each rank, the loss
+   falling, the gathered tables ``torch.equal`` to G1's world-1 tables
+   after round 0);
+   H4 ``launch.train.main`` with ``--shard-tables --sgns-backend fused``
+   on ``wec:k=12,deg=100,seed=0`` in the ranks' world, its
+   ``embeddings.npy`` equal to the same command's in this process (a
+   world of one).
 
 It prints the card's name and power limit, the build seconds, the
 registers and spills of the walk kernels and the tensor-core kernel,
@@ -243,6 +263,11 @@ G1_CPU_WAIT_S = 900             # the longest the script waits for it
 G2_SPEC = "wec:k=16,deg=100,seed=0"
 G2_ROUNDS = 1                   # the launcher's --rounds, cut from 10
 G_BATCH = 65536                 # G2's --sgns-batch
+H_WORK = ROOT / "build" / "chip_smoke_h"     # path H's files and init
+H_WORLD = 2                     # H2-H4's ranks, both on the one card
+H_WAIT_S = 600                  # the longest the script waits for them
+H4_SPEC = "wec:k=12,deg=100,seed=0"
+H3_ROUNDS = 1                   # H3 trains path C's round 0 (of 2)
 
 
 CHILDREN: list = []             # worker processes, stopped at exit
@@ -1106,7 +1131,7 @@ def path_g1(np, torch, walks, dense) -> dict:
     profile_round(torch, lambda: trainer.consume(
         walks[0][:C_PROFILE_WALKERS]), "G1 sharded SGNS", "~200 steps")
     return {"launches": launches, "steps": st.steps, "rates": rates,
-            "worker": worker, "card": card}
+            "worker": worker, "card": card, "kw": kw}
 
 
 def timed(owner, name: str, calls: dict, label: str):
@@ -1169,7 +1194,7 @@ def path_g2(np, torch, tmp: Path) -> dict:
     CSR cache, walked, trained sharded with the row entry, then resumed."""
     from repro_torch.data import ingest
     from repro_torch.data.store import open_graph
-    from repro_torch.train.shard import pow2_bucket
+    from repro_torch.train.shard import table_rows, unique_rows
 
     t0 = time.perf_counter()
     g = open_graph(G2_SPEC).graph
@@ -1240,7 +1265,8 @@ def path_g2(np, torch, tmp: Path) -> dict:
         raise AssertionError(f"G2: the resumed run saved {again['saves']} "
                              f"checkpoints (the first {first['saves']}) or "
                              f"wrote other embeddings")
-    u_in, u_out = pow2_bucket(G_BATCH), pow2_bucket(G_BATCH * 6)
+    u_in = unique_rows(G_BATCH, table_rows(g.n, 1))
+    u_out = unique_rows(G_BATCH * 6, table_rows(g.n, 1))
     stages = {"text write": write_s, **first["stages"],
               "cached open": open_ms / 1e3,
               "walks (exposed)": st.walk_wait_seconds,
@@ -1265,6 +1291,295 @@ def path_g2(np, torch, tmp: Path) -> dict:
         + "): the same embeddings.npy")
     return {"launches": first["launches"], "steps": st.steps,
             "stages": stages}
+
+
+def h_plan(mode: str = "exact", **kw):
+    """Path H's walk plan: path A's, on the sharded backend."""
+    from repro_torch.engine import WalkPlan
+    return WalkPlan(p=1.0, q=0.5, length=LENGTH, cap=128, mode=mode,
+                    backend="sharded", **kw)
+
+
+def h4_argv(ckpt: Path) -> list:
+    """H4's launcher command (G2's settings on H4_SPEC's generated graph);
+    the card is the default device."""
+    return ["--task", "node2vec", "--graph", H4_SPEC, "--p", "1", "--q",
+            "0.5", "--rounds", "1", "--walk-length", str(LENGTH), "--dim",
+            "128", "--window", "10", "--negatives", "5", "--sgns-batch",
+            str(G_BATCH), "--sgns-backend", "fused", "--shard-tables",
+            "--ckpt-dir", str(ckpt)]
+
+
+def sha1(np, a) -> str:
+    import hashlib
+    return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def path_h1(np, torch, pg, a_walks: dict) -> dict:
+    """H1: the sharded backend in a world of one over NCCL on path A's
+    layout, exact and approx: the walks must equal path A's fused walks of
+    the same seed, with no drop."""
+    import torch.distributed as dist
+    from repro_torch.engine import WalkEngine, round_seed
+
+    H_WORK.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{H_WORK}/h1",
+                            rank=0, world_size=1)
+    out = {}
+    try:
+        for mode in ("exact", "approx"):
+            eng = WalkEngine.build(pg, h_plan(mode))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.run(seed=round_seed(0, 0))
+            secs = time.perf_counter() - t0
+            if res.stats.dropped or \
+                    not np.array_equal(res.walks, a_walks[mode]):
+                raise AssertionError(
+                    f"H1/{mode}: {res.stats.dropped} drops, walks equal to "
+                    f"path A's: {np.array_equal(res.walks, a_walks[mode])}")
+            steps = res.walks.size
+            log(f"H1/{mode}: sharded, world 1 over "
+                f"{dist.get_backend(eng.mesh.group)}, capacity "
+                f"{eng.capacity}: {steps / secs:.4g} walker-steps/s "
+                f"({secs:.3f} s); == path A's fused walks; dropped 0")
+            profile_round(torch, lambda: eng.run(seed=1), f"H1/{mode} sharded")
+            out[mode] = steps / secs
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def timed_exchanges(torch, WD):
+    """Wrap ``walk_distributed._all_to_all`` so each call (and the wait of
+    its handle) is timed from a synchronized card; returns a function that
+    puts it back and returns (seconds, calls)."""
+    orig, acc = WD._all_to_all, [0.0, 0]
+
+    def run(group, x, async_op=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, work = orig(group, x, False)
+        torch.cuda.synchronize()
+        acc[0] += time.perf_counter() - t0
+        acc[1] += 1
+        return out, None
+    WD._all_to_all = run
+
+    def done():
+        WD._all_to_all = orig
+        return acc[0], acc[1]
+    return done
+
+
+def h_rank(np, torch, rank: int, work: Path) -> None:
+    """The body of one of path H's two processes (``python3 chip_smoke.py
+    --h-rank R DIR``): both on the one card in a gloo world (NCCL refuses
+    two ranks on one card). H2 walks path A's layout sharded (barrier,
+    pipelined, and at capacity "auto" with each exchange timed), H3 trains
+    path G1's sharded trainer on path C's round 0, H4 runs the launcher;
+    each rank writes what it saw to ``rank<R>.json``."""
+    import datetime
+    import warnings
+    import torch.distributed as dist
+    from repro_torch.core import walk_distributed as WD
+    from repro_torch.core.graph import PaddedGraph
+    from repro_torch.engine import WalkEngine, round_seed
+    from repro_torch.kernels import build
+    from repro_torch.kernels import sgns as S
+    from repro_torch.launch import train as LT
+    from repro_torch.train.stream import StreamingSGNSTrainer
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{work}/init",
+                            rank=rank, world_size=H_WORLD,
+                            timeout=datetime.timedelta(seconds=H_WAIT_S))
+    res: dict = {"rank": rank}
+    try:
+        build.load_all(("sgns",))
+        z = np.load(work / "layout.npz")
+        pg = PaddedGraph.from_numpy({k: z[k] for k in z.files}, z["n"],
+                                    DEV)
+        del z
+        for name, kw in (("barrier", {}), ("pipeline", {"pipeline": True}),
+                         ("auto", {"capacity": "auto"})):
+            eng = WalkEngine.build(pg, h_plan(**kw))
+            dist.barrier()
+            torch.cuda.synchronize()
+            timer = timed_exchanges(torch, WD) if name == "auto" else None
+            t0 = time.perf_counter()
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", RuntimeWarning)
+                    r = eng.run(seed=round_seed(0, 0))
+            finally:
+                exch = timer() if timer else None
+            secs = time.perf_counter() - t0
+            res[name] = {"seconds": secs, "sha1": sha1(np, r.walks),
+                         "shape": list(r.walks.shape),
+                         "dropped": r.stats.dropped,
+                         "capacity": eng.capacity,
+                         "collective_bytes": r.stats.collective_bytes,
+                         "exposed_bytes": r.stats.exposed_collective_bytes,
+                         "exchange": exch}
+            del eng, r
+        del pg
+        torch.cuda.empty_cache()
+
+        walks = list(np.load(work / "c_walks.npy"))[:H3_ROUNDS]
+        kw = json.loads((work / "g1_kw.json").read_text())
+        S.sgns_fused.launches = 0
+        dist.barrier()
+        trainer = StreamingSGNSTrainer(**kw, device=DEV)
+        t0 = time.perf_counter()
+        _, st = trainer.train(iter(walks))
+        tables = {k: v.cpu().numpy() for k, v in trainer.tables().items()}
+        res["h3"] = {"seconds": time.perf_counter() - t0,
+                     "steps": st.steps, "launches": S.sgns_fused.launches,
+                     "shards": st.shards, "u": [trainer._u_in,
+                                               trainer._u_out],
+                     "sha1": sha1(np, np.stack([tables["emb_in"],
+                                               tables["emb_out"]]))}
+        if rank == 0:
+            np.save(work / "h3_tables.npy",
+                    np.stack([tables["emb_in"], tables["emb_out"]]))
+            np.save(work / "h3_losses.npy", trainer.loss_history())
+        del trainer, tables
+        torch.cuda.empty_cache()
+
+        S.sgns_fused.launches = 0
+        dist.barrier()
+        t0 = time.perf_counter()
+        emb = LT.main(h4_argv(work / "h4_two"))
+        res["h4"] = {"seconds": time.perf_counter() - t0,
+                     "sha1": sha1(np, emb), "launches":
+                     S.sgns_fused.launches}
+    finally:
+        (work / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+
+
+def path_h(np, torch, pg, a_walks: dict, c_walks, g1_kw: dict,
+           g1_tables: dict) -> dict:
+    """Path H: the sharded (Pregel) backend and the sharded tables across
+    ``torch.distributed`` worlds on the one card. H1 in this process
+    (world 1, NCCL); H2-H4 in two processes started here (world 2, gloo),
+    each gated against the world-1 results."""
+    shutil.rmtree(H_WORK, ignore_errors=True)
+    H_WORK.mkdir(parents=True)
+    t_h = time.perf_counter()
+    h1 = path_h1(np, torch, pg, a_walks)
+    t0 = time.perf_counter()
+    fields = {k: getattr(pg, k).cpu().numpy() for k in (
+        "adj", "wgt", "deg", "alias_p", "alias_i", "w_min", "w_max",
+        "hot_pos", "hot_ids", "hot_adj", "hot_wgt", "hot_alias_p",
+        "hot_alias_i")}
+    np.savez(H_WORK / "layout.npz", n=pg.n, **fields)
+    del fields
+    np.save(H_WORK / "c_walks.npy", np.stack(c_walks))
+    (H_WORK / "g1_kw.json").write_text(json.dumps(g1_kw))
+    log(f"H: path A's layout and path C's walks written for the ranks in "
+        f"{time.perf_counter() - t0:.2f} s host")
+
+    from repro_torch.kernels import sgns as S
+    S.sgns_fused.launches = 0
+    t0 = time.perf_counter()
+    from repro_torch.launch import train as LT
+    one = LT.main(h4_argv(H_WORK / "h4_one"))
+    h4_one_s, h4_one_launches = time.perf_counter() - t0, \
+        S.sgns_fused.launches
+
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(H_WORLD):
+        with open(H_WORK / f"rank{r}.log", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--h-rank",
+                 str(r), str(H_WORK)], stdout=out, stderr=subprocess.STDOUT))
+    CHILDREN.extend(procs)
+    try:
+        codes = [p.wait(timeout=H_WAIT_S) for p in procs]
+    except subprocess.TimeoutExpired:
+        codes = [p.poll() for p in procs]
+    ranks_s = time.perf_counter() - t0
+    if codes != [0] * H_WORLD:
+        for r in range(H_WORLD):
+            log(f"H rank {r} log (tail):\n" + "".join(
+                (H_WORK / f"rank{r}.log").read_text().splitlines(True)[-40:]))
+        raise AssertionError(f"H: the ranks exited with {codes}")
+    ranks = [json.loads((H_WORK / f"rank{r}.json").read_text())
+             for r in range(H_WORLD)]
+
+    want = sha1(np, a_walks["exact"])
+    for name in ("barrier", "pipeline"):
+        for rk in ranks:
+            h = rk[name]
+            if h["sha1"] != want or h["dropped"]:
+                raise AssertionError(
+                    f"H2/{name} rank {rk['rank']}: walks equal to H1's "
+                    f"{h['sha1'] == want}, {h['dropped']} drops")
+        h = ranks[0][name]
+        log(f"H2/{name}: world 2 over gloo on one card, capacity "
+            f"{h['capacity']}: {a_walks['exact'].size / h['seconds']:.4g} "
+            f"walker-steps/s ({h['seconds']:.3f} s); both ranks' gathered "
+            f"walks == H1's; dropped 0; collective_bytes "
+            f"{h['collective_bytes']} a rank, exposed {h['exposed_bytes']}")
+    auto = ranks[0]["auto"]
+    if any(rk["auto"]["sha1"] != auto["sha1"] for rk in ranks):
+        raise AssertionError("H2/auto: the ranks' gathered walks differ")
+    if auto["dropped"] == 0 and auto["sha1"] != want:
+        raise AssertionError("H2/auto: no request dropped, yet the walks "
+                             "differ from H1's")
+    exch_s, calls = auto["exchange"]
+    # the model counts each rank's block to itself, which never leaves the
+    # process: (S-1)/S of the bytes cross between the ranks
+    cross = auto["collective_bytes"] * (H_WORLD - 1) / H_WORLD
+    log(f"H2/auto: capacity {auto['capacity']} (auto), dropped "
+        f"{auto['dropped']} ({auto['dropped'] / a_walks['exact'].size:.3g} "
+        f"of walker-steps), walks == H1's: {auto['sha1'] == want}; "
+        f"{a_walks['exact'].size / auto['seconds']:.4g} walker-steps/s "
+        f"({auto['seconds']:.3f} s, each exchange timed); collective_bytes "
+        f"{auto['collective_bytes']} a rank beside the exchange measured "
+        f"on rank 0 (each all_to_all from a synchronized card): "
+        f"{exch_s:.3f} s in {calls} calls; modelled bytes that cross "
+        f"between the ranks ({H_WORLD - 1}/{H_WORLD} of them) over the "
+        f"measured time {cross / exch_s / 1e9:.3f} GB/s")
+
+    tables = np.load(H_WORK / "h3_tables.npy")
+    losses = np.load(H_WORK / "h3_losses.npy")
+    for rk in ranks:
+        h = rk["h3"]
+        if h["launches"] != h["steps"] or h["steps"] == 0 or \
+                h["shards"] != H_WORLD or h["sha1"] != ranks[0]["h3"]["sha1"]:
+            raise AssertionError(f"H3 rank {rk['rank']}: {h}")
+    check_loss(np, losses, c_walks[:H3_ROUNDS], "H3")
+    for i, k in enumerate(("emb_in", "emb_out")):
+        if not torch.equal(torch.from_numpy(tables[i]), g1_tables[k]):
+            raise AssertionError(f"H3: the world-2 {k} differs from G1's "
+                                 f"world-1 table after round 0")
+    h = ranks[0]["h3"]
+    log(f"H3: G1's sharded trainer at world 2 (gloo, one card): "
+        f"{h['steps']} steps in {h['seconds']:.3f} s = "
+        f"{h['steps'] / h['seconds']:.4g} steps/s, u_in/u_out {h['u']}; "
+        f"row-entry launches {[rk['h3']['launches'] for rk in ranks]} == "
+        f"steps on each rank; tables torch.equal G1's world-1 tables after "
+        f"round 0")
+
+    saved = np.load(H_WORK / "h4_two" / "embeddings.npy")
+    if not np.array_equal(saved, one) or \
+            any(rk["h4"]["sha1"] != sha1(np, one) for rk in ranks):
+        raise AssertionError("H4: the world-2 launcher's embeddings differ "
+                             "from world 1's")
+    log(f"H4: launch.train.main {' '.join(h4_argv(Path('DIR')))}: world 1 "
+        f"{h4_one_s:.2f} s ({h4_one_launches} row-entry launches), world 2 "
+        f"{ranks[0]['h4']['seconds']:.2f} s "
+        f"({[rk['h4']['launches'] for rk in ranks]} a rank); embeddings.npy "
+        f"{saved.shape} equal")
+    log(f"H: the two ranks took {ranks_s:.1f} s from their start; path H "
+        f"{time.perf_counter() - t_h:.1f} s in all")
+    shutil.rmtree(H_WORK, ignore_errors=True)
+    return {"h1": h1, "launches": [rk["h3"]["launches"] for rk in ranks],
+            "steps": ranks[0]["h3"]["steps"]}
 
 
 def graph_ms(torch, fn, reps: int) -> float:
@@ -2089,7 +2404,8 @@ def drive(torch, engine, rounds: int):
 
 def main(argv) -> int:
     worker = len(argv) == 2 and argv[0] == "--g1-cpu"
-    if argv not in ([], ["--walks"]) and not worker:
+    rank = len(argv) == 3 and argv[0] == "--h-rank"
+    if argv not in ([], ["--walks"]) and not worker and not rank:
         print("usage: python3 chip_smoke.py [--walks]", file=sys.stderr)
         return 2
     import numpy as np
@@ -2097,6 +2413,10 @@ def main(argv) -> int:
     if worker:   # G1's CPU half, started by the script itself
         sys.path.insert(0, str(SRC))
         g1_cpu(np, torch, Path(argv[1]))
+        return 0
+    if rank:     # one of path H's ranks, started by the script itself
+        sys.path.insert(0, str(SRC))
+        h_rank(np, torch, int(argv[1]), Path(argv[2]))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2157,7 +2477,7 @@ def main(argv) -> int:
     log(f"A: {spec_a}: n={pg_a.n} m={first.store.graph.m} "
         f"max_deg={pg_a.hot_cap} hot={pg_a.num_hot} layout built in "
         f"{time.perf_counter() - t0:.2f} s host")
-    step_launches, rows_built = {}, {}
+    step_launches, rows_built, a_walks = {}, {}, {}
     for mode in ("exact", "approx"):
         kw = dict(p=1.0, q=0.5, length=LENGTH, cap=128, mode=mode)
         fused = WalkEngine.build(pg_a, WalkPlan(backend="fused", **kw))
@@ -2177,6 +2497,7 @@ def main(argv) -> int:
             raise AssertionError(f"A/exact: the fused run built full-width "
                                  f"rows {built} times, want 2 (step 0 of "
                                  f"each round)")
+        a_walks[mode] = walks[0]              # path H's yardstick
         if mode == "exact":
             lm_walks = walks[0]               # path E's prompts
         if (K.node2vec_step.launches, K.node2vec_walk.launches) != \
@@ -2278,7 +2599,14 @@ def main(argv) -> int:
     g1 = path_g1(np, torch, c_walks, trainer)
     since(t_start, "path G1")
     table_c = serving_table(trainer.params)    # path F's table
-    del trainer, c_walks, pg_a
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ---- path H: the sharded backend and tables across worlds ----------
+    # G1's world-1 tables after round 0 (card[0] is its 100-step reading)
+    h = path_h(np, torch, pg_a, a_walks, c_walks, g1["kw"], g1["card"][1])
+    since(t_start, "path H")
+    del c_walks, pg_a, a_walks
 
     # ---- main path B: whole-walk kernel, FN-Base -----------------------
     walk = walk_phase(np, torch, K, B_SPEC, "B", profile=True)
@@ -2356,7 +2684,9 @@ def main(argv) -> int:
          "ms": sg["ms_host"], "plain_ms": sg["plain_ms"],
          "bound_ms": sg["bound"][0], "bound_by": sg["bound"][1],
          "library_ms": None, "launches_row_entry": g1["launches"],
-         "launches_launcher": g2["launches"], "ms_host": sg["ms_host"],
+         "launches_launcher": g2["launches"],
+         "launches_world2_per_rank": h["launches"],
+         "ms_host": sg["ms_host"],
          "ms_device": sg["ms_device"], "ms_old": sg["ms_old"],
          "ms_old_device": sg["ms_old_device"],
          "ms_rows_entry": sg["ms_rows_entry"],

@@ -3,7 +3,8 @@ of ``repro.core.node2vec``.
 
 The walk stage runs ``num_walks`` FN-Multi rounds through
 ``repro_torch.engine.WalkEngine``; :meth:`Node2VecConfig.plan` derives the
-``WalkPlan``. :func:`train_embeddings` trains on host batches
+``WalkPlan`` (the sharded backend iff a mesh is given, unless ``backend``
+says otherwise). :func:`train_embeddings` trains on host batches
 (``walks_to_sgns_batches``) through ``train_step`` on its default
 ``"jnp"`` backend, as the JAX package does: ``sgns_backend`` takes effect
 only in the streamed trainer (``repro_torch.train.stream``). Entry points
@@ -12,6 +13,7 @@ run on the card unless given ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -43,23 +45,37 @@ class Node2VecConfig:
     sgns_backend: str = "jnp"     # streamed trainer's gradient backend
     cap: Optional[int] = None     # cold row width (None -> FN-Base layout)
     seed: int = 0
-    backend: Optional[str] = None  # None -> reference; "sharded" raises
-    pipeline: bool = False         # whole-walk kernel where it applies
+    backend: Optional[str] = None  # None -> sharded iff a mesh is given
+    capacity: Optional[object] = None  # sharded request capacity per dest
+    strict_drops: bool = False     # raise instead of warn on dropped requests
+    pipeline: bool = False         # see WalkPlan.pipeline
 
-    def plan(self) -> WalkPlan:
+    def plan(self, mesh=None) -> WalkPlan:
         """The walk-stage half of this config as a ``WalkPlan``."""
+        backend = self.backend or (
+            "sharded" if mesh is not None else "reference")
         return WalkPlan(p=self.p, q=self.q, length=self.walk_length,
                         mode=self.mode, approx_eps=self.approx_eps,
-                        backend=self.backend or "reference", cap=self.cap,
+                        backend=backend, cap=self.cap,
+                        capacity=self.capacity,
+                        strict_drops=self.strict_drops,
                         pipeline=self.pipeline)
 
 
-def generate_walks(g, cfg: Node2VecConfig, device=None) -> np.ndarray:
+def generate_walks(g, cfg: Node2VecConfig, mesh=None,
+                   device=None) -> np.ndarray:
     """All rounds of walks, [r * n, walk_length]."""
-    engine = WalkEngine.build(g, cfg.plan(), device=device)
-    return np.concatenate([res.walks for res in
-                           engine.rounds(cfg.num_walks, seed=cfg.seed)],
-                          axis=0)
+    engine = WalkEngine.build(g, cfg.plan(mesh), mesh=mesh, device=device)
+    rounds, dropped = [], 0
+    for res in engine.rounds(cfg.num_walks, seed=cfg.seed):
+        rounds.append(res.walks)
+        dropped += res.stats.dropped
+    if dropped:
+        warnings.warn(
+            f"generate_walks: {dropped} dropped NEIG requests across "
+            f"{cfg.num_walks} rounds — the corpus under-samples those steps",
+            RuntimeWarning, stacklevel=2)
+    return np.concatenate(rounds, axis=0)
 
 
 def train_embeddings(g, walks: np.ndarray, cfg: Node2VecConfig,
@@ -79,6 +95,6 @@ def train_embeddings(g, walks: np.ndarray, cfg: Node2VecConfig,
     return normalize_embeddings(params).cpu().numpy()
 
 
-def node2vec(g, cfg: Node2VecConfig, device=None) -> np.ndarray:
-    walks = generate_walks(g, cfg, device=device)
+def node2vec(g, cfg: Node2VecConfig, mesh=None, device=None) -> np.ndarray:
+    walks = generate_walks(g, cfg, mesh=mesh, device=device)
     return train_embeddings(g, walks, cfg, device=device)

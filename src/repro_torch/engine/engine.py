@@ -1,15 +1,23 @@
-"""WalkEngine — port of the single-device half of
-``repro.engine.engine`` (the ``reference`` and ``fused`` backends).
+"""WalkEngine — port of ``repro.engine.engine``: one entry point over the
+reference, fused and sharded backends.
 
-    engine = WalkEngine.build(graph, plan)          # on the card
+    engine = WalkEngine.build(graph, plan, mesh=None)   # on the card
     result = engine.run(starts=None, seed=0)        # WalkResult(walks, stats)
     for r in engine.rounds(10, seed=0): ...         # FN-Multi rounds
 
 ``build`` accepts what :func:`~repro_torch.data.store.open_graph` accepts
-(a spec string, a CSRGraph, a Dataset, a GraphStore) or a prebuilt
-:class:`PaddedGraph`. ``device=None`` means the card; the tests pass
+(a spec string, a CSRGraph, a Dataset, a GraphStore), a prebuilt
+:class:`PaddedGraph`, or on the sharded backend this rank's
+:class:`ShardedGraph`. ``device=None`` means the card; the tests pass
 ``device="cpu"``. Walker ids default to the start vertex ids, so the same
 plan and seed give the same walks on every backend and in the JAX package.
+
+The sharded backend runs one program per rank of a ``torch.distributed``
+world (``mesh``, default: every rank of the default group; a world of one
+without one): every rank calls ``build`` and ``run`` with the same
+arguments, walks the walkers that start on its row block, and gets the
+whole ``[W, L]`` walks back (an all-gather), with the drops summed over
+the world.
 
 ``engine.update(deltas)`` applies edge deltas through the engine's
 GraphStore and splices only the affected rows into a new device layout
@@ -17,18 +25,25 @@ GraphStore and splices only the affected rows into a new device layout
 """
 from __future__ import annotations
 
-from typing import Iterator
+import warnings
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import random as jr
 from repro_torch.core.graph import PaddedGraph
 from repro_torch.core.walk import run_fused_persistent, run_reference
+from repro_torch.core.walk_distributed import ShardedGraph, distributed_walk
 from repro_torch.data.store import open_graph
 from repro_torch.device import resolve_device
 from repro_torch.engine.plan import WalkPlan, WalkResult, WalkStats
-from repro_torch.engine.update import UpdateReport, patch_padded
+from repro_torch.engine.update import (UpdateReport, patch_padded,
+                                       patch_sharded)
+from repro_torch.launch.mesh import RwMesh, make_rw_mesh
+from repro_torch.roofline.traffic import (walk_auto_capacity,
+                                          walk_overlap_model)
 
 
 def round_seed(seed: int, r: int) -> int:
@@ -37,39 +52,99 @@ def round_seed(seed: int, r: int) -> int:
 
 
 class WalkEngine:
-    """Executable walk workload: a plan bound to a device layout."""
+    """Executable walk workload: a plan bound to a device layout (and, on
+    the sharded backend, to this rank of a mesh)."""
 
-    def __init__(self, plan: WalkPlan, pg: PaddedGraph, store=None):
+    def __init__(self, plan: WalkPlan, pg: Optional[PaddedGraph] = None,
+                 store=None, sg: Optional[ShardedGraph] = None,
+                 mesh: Optional[RwMesh] = None,
+                 capacity: Optional[int] = None):
         self.plan = plan
         self.pg = pg
+        self.sg = sg
+        self.mesh = mesh
+        self.capacity = capacity
         self.store = store              # GraphStore (update()'s source)
         self._sampler = plan.sampler()
-        self._no_hot = int(pg.hot_pos.max()) < 0
+        self._no_hot = pg is not None and int(pg.hot_pos.max()) < 0
         self._delta_edges = 0           # cumulative churn via update()
         self._last_invalidated_fraction = 0.0
 
     @classmethod
-    def build(cls, graph, plan: WalkPlan, device=None) -> "WalkEngine":
-        """Bind ``plan`` to ``graph`` on ``device`` (default: the card)."""
-        if isinstance(graph, PaddedGraph):
+    def build(cls, graph, plan: WalkPlan, mesh: Optional[RwMesh] = None,
+              device=None) -> "WalkEngine":
+        """Bind ``plan`` to ``graph`` on ``device`` (default: the mesh's
+        device, a prebuilt layout's own, or the card). ``mesh`` is read by
+        the sharded backend alone."""
+        if isinstance(graph, ShardedGraph) and plan.backend != "sharded":
+            raise ValueError(
+                f"ShardedGraph input requires backend='sharded', "
+                f"got {plan.backend!r}")
+        if device is None and mesh is not None:
+            device = mesh.device
+        if isinstance(graph, (PaddedGraph, ShardedGraph)):
             if device is not None and \
                     torch.device(device) != graph.device:
-                raise ValueError(f"PaddedGraph lives on {graph.device}, "
+                raise ValueError(f"the layout lives on {graph.device}, "
                                  f"not {device}")
-            return cls(plan, graph)
-        device = resolve_device(device)
-        store = open_graph(graph)
-        pg = PaddedGraph.build(store.graph, cap=plan.cap,
-                               hot_cap=plan.hot_cap, device=device)
-        return cls(plan, pg, store)
+            device, store = graph.device, None
+        else:
+            device = resolve_device(device)
+            store = open_graph(graph)
+            graph = store.graph
+        if plan.backend != "sharded":
+            pg = graph if isinstance(graph, PaddedGraph) else \
+                PaddedGraph.build(graph, cap=plan.cap, hot_cap=plan.hot_cap,
+                                  device=device)
+            return cls(plan, pg, store)
+
+        rw = make_rw_mesh(mesh, device)
+        pg = None
+        if isinstance(graph, ShardedGraph):
+            sg, deg = graph, None
+            if (sg.num_shards, sg.rank) != (rw.size, rw.rank):
+                raise ValueError(
+                    f"ShardedGraph built for shard {sg.rank} of "
+                    f"{sg.num_shards} but this is rank {rw.rank} of a "
+                    f"world of {rw.size}")
+        elif isinstance(graph, PaddedGraph):
+            pg = graph
+            sg, deg = ShardedGraph.build(pg, rw.size, rw.rank), pg.deg.cpu()
+        else:
+            # this rank's rows straight from the CSR, no dense whole-graph
+            # PaddedGraph
+            sg = ShardedGraph.from_csr(graph, rw.size, cap=plan.cap,
+                                       hot_cap=plan.hot_cap, rank=rw.rank,
+                                       device=rw.device)
+            deg = graph.deg
+        # capacity default: a whole walker block per destination, zero
+        # drops at any skew; pipelined exchanges carry one cohort (half a
+        # block) each
+        per_cohort = (sg.n_local + 1) // 2 if plan.pipeline else sg.n_local
+        if plan.capacity == "auto":
+            # hot vertices are replicated and never take slots, so the
+            # demand follows the cold degree mass
+            if deg is None:
+                raise ValueError(
+                    "capacity='auto' needs every vertex's degree: build the "
+                    "engine from a graph or a PaddedGraph, or pass an int")
+            capacity = walk_auto_capacity(
+                np.asarray(deg)[:sg.n_orig], cap=sg.cap,
+                num_shards=sg.num_shards, walkers_per_shard=per_cohort)
+        elif plan.capacity is not None:
+            capacity = int(plan.capacity)
+        else:
+            capacity = per_cohort
+        return cls(plan, pg, store, sg=sg, mesh=rw, capacity=capacity)
 
     @property
     def n(self) -> int:
-        return self.pg.n
+        """Number of real (unpadded) vertices."""
+        return self.sg.n_orig if self.sg is not None else self.pg.n
 
     @property
     def device(self) -> torch.device:
-        return self.pg.device
+        return self.sg.device if self.sg is not None else self.pg.device
 
     def _fused_persistent(self) -> bool:
         """The whole-walk kernel runs when the layout lets it: fused +
@@ -86,10 +161,12 @@ class WalkEngine:
         return (gv, self._delta_edges, self._last_invalidated_fraction)
 
     def _dispatch(self, starts, seed: int, walker_ids):
-        """Enqueue one run; returns (walks tensor on the device, the
-        update snapshot)."""
+        """Enqueue one run; returns (walks tensor on the device, the drops
+        or None, the row count to keep or None, the update snapshot)."""
         dev = self.device
         key = jr.PRNGKey(seed, device=dev)
+        if self.sg is not None:
+            return self._dispatch_sharded(starts, key, walker_ids)
         if starts is None:
             starts = np.arange(self.pg.n, dtype=np.int32)
         starts = torch.as_tensor(np.asarray(starts, np.int32), device=dev)
@@ -99,17 +176,86 @@ class WalkEngine:
             else run_reference
         walks = run(self.pg, starts, walker_ids.long(), key, self._sampler,
                     self.plan.length)
-        return walks, self._update_meta()
+        return walks, None, None, self._update_meta()
+
+    def _dispatch_sharded(self, starts, key, walker_ids):
+        """This rank walks its block of ``starts`` (which every rank is
+        given whole); the blocks are all-gathered and the drops summed."""
+        g, mesh = self.sg, self.mesh
+        slice_to = None
+        if starts is None:
+            starts = np.arange(g.n, dtype=np.int32)
+            slice_to = g.n_orig       # padding vertices walk self-loops
+        starts = np.asarray(starts, np.int32)
+        if starts.shape[0] % g.num_shards:
+            raise ValueError(
+                f"walker count {starts.shape[0]} must divide evenly over "
+                f"{g.num_shards} shards")
+        # walker block s starts on shard s and reads its start rows
+        # locally, so each start must live on the shard of its position
+        w_local = starts.shape[0] // g.num_shards
+        owner = starts // g.n_local
+        placed = np.arange(starts.shape[0]) // max(w_local, 1)
+        if not np.array_equal(owner, placed):
+            bad = int(np.nonzero(owner != placed)[0][0])
+            raise ValueError(
+                f"starts must be grouped by owning shard (vertex id // "
+                f"{g.n_local}): starts[{bad}]={int(starts[bad])} belongs "
+                f"to shard {int(owner[bad])} but is placed on shard "
+                f"{int(placed[bad])}")
+        walker_ids = starts if walker_ids is None else \
+            np.asarray(walker_ids, np.int32)
+        block = slice(mesh.rank * w_local, (mesh.rank + 1) * w_local)
+        walks, drops = distributed_walk(
+            g, mesh.group, self._sampler, self.capacity, self.plan.length,
+            torch.from_numpy(starts[block]).to(g.device),
+            torch.from_numpy(walker_ids[block]).to(g.device), key,
+            pipeline=self.plan.pipeline)
+        if mesh.group is not None:
+            parts = [torch.empty_like(walks) for _ in range(mesh.size)]
+            dist.all_gather(parts, walks, group=mesh.group)
+            walks = torch.cat(parts)
+            dist.all_reduce(drops, group=mesh.group)
+        return walks, drops, slice_to, self._update_meta()
 
     def _finalize(self, dispatched) -> WalkResult:
-        walks, (gv, delta_edges, inv_frac) = dispatched
+        walks, drops, slice_to, (gv, delta_edges, inv_frac) = dispatched
         walks = walks.cpu().numpy()
+        if slice_to is not None:
+            walks = walks[:slice_to]
+        dropped = int(drops) if drops is not None else 0
+        if dropped:
+            msg = (f"{dropped} NEIG requests dropped (capacity="
+                   f"{self.capacity}); affected walkers stayed put for those"
+                   f" steps — raise WalkPlan.capacity or walk fewer vertices"
+                   f" per round (FN-Multi)")
+            if self.plan.strict_drops:
+                raise RuntimeError(msg)
+            warnings.warn(msg, RuntimeWarning, stacklevel=3)
+        overlap = self._overlap_estimate(int(walks.shape[0]))
         stats = WalkStats(backend=self.plan.backend,
                           walkers=int(walks.shape[0]),
-                          supersteps=self.plan.length, graph_version=gv,
-                          delta_edges=delta_edges,
+                          supersteps=self.plan.length, dropped=dropped,
+                          collective_bytes=overlap["total_bytes"],
+                          exposed_collective_bytes=overlap["exposed_bytes"],
+                          overlap_efficiency=overlap["efficiency"],
+                          graph_version=gv, delta_edges=delta_edges,
                           invalidated_shard_fraction=inv_frac)
         return WalkResult(walks=walks, stats=stats)
+
+    def _overlap_estimate(self, walkers: int) -> dict:
+        """Analytic total and exposed exchange bytes of a run of
+        ``walkers`` walkers (``roofline.traffic.walk_overlap_model``)."""
+        g = self.sg
+        if g is None:
+            return {"total_bytes": 0, "exposed_bytes": 0, "efficiency": 0.0}
+        width = g.cap if self._sampler.mode == "approx_always" \
+            else g.hot_cap
+        return walk_overlap_model(
+            g.num_shards, self.capacity, g.cap, self.plan.length,
+            walkers_per_shard=max(walkers // g.num_shards, 1),
+            pipeline=self.plan.pipeline and self.plan.length >= 2,
+            w_bytes=g.wgt.element_size(), width=width)
 
     def run(self, starts=None, seed: int = 0, walker_ids=None) -> WalkResult:
         """Walk ``starts`` (default: every vertex) with the bound plan."""
@@ -142,14 +288,21 @@ class WalkEngine:
                 "from a spec string, CSRGraph, Dataset, or GraphStore (a "
                 "prebuilt PaddedGraph carries no host CSR to patch)")
         patch = self.store.apply(deltas)
-        self.pg, relayout, hot_rows = patch_padded(
-            self.pg, self.store.graph, patch.affected, self.plan.cap,
-            self.plan.hot_cap)
-        if relayout:
-            self._no_hot = int(self.pg.hot_pos.max()) < 0
-        device_shards = patch.num_shards
-        invalidated = device_shards if relayout \
-            else int(len(patch.affected_shards))
+        g, aff = self.store.graph, patch.affected
+        if self.sg is None:
+            self.pg, relayout, hot_rows = patch_padded(
+                self.pg, g, aff, self.plan.cap, self.plan.hot_cap)
+            if relayout:
+                self._no_hot = int(self.pg.hot_pos.max()) < 0
+            device_shards = patch.num_shards
+            invalidated = device_shards if relayout \
+                else int(len(patch.affected_shards))
+        else:
+            # the capacity stays as built, so the exchange's shapes hold
+            self.sg, relayout, inv_shards, hot_rows = patch_sharded(
+                self.sg, g, aff, self.plan.cap, self.plan.hot_cap)
+            device_shards = self.sg.num_shards
+            invalidated = int(len(inv_shards))
         self._delta_edges += patch.delta_edges
         self._last_invalidated_fraction = invalidated / max(device_shards, 1)
         return UpdateReport(
@@ -157,3 +310,4 @@ class WalkEngine:
             device_shards=device_shards,
             invalidated_device_shards=invalidated,
             hot_rows_updated=hot_rows)
+

@@ -1,5 +1,5 @@
-"""Shard-local device updates for the walk engine — port of the
-single-device half of ``repro.engine.update``.
+"""Shard-local device updates for the walk engine — port of
+``repro.engine.update``.
 
 The host side of an incremental update is the CSR patch
 (``repro_torch.data.deltas.apply_delta_csr``); this module is the device
@@ -28,7 +28,10 @@ from-scratch layout field by field whenever no relayout was needed.
 The JAX package pads each scatter's row count to a power of two to bound
 jit recompiles (``_pad_to_bucket``); eager torch compiles nothing, so the
 rows are written once each, and the affected ids are unique.
-``patch_sharded`` is not ported (ROADMAP Queue 1 item 9).
+
+:func:`patch_sharded` does the same for one rank's
+:class:`~repro_torch.core.walk_distributed.ShardedGraph`: the affected rows
+of its own block, and the affected hot rows, which every rank holds.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ import torch
 
 from repro_torch.core.alias import build_alias_rows
 from repro_torch.core.graph import PAD_ID, CSRGraph, PaddedGraph
+from repro_torch.core.walk_distributed import ShardedGraph
 from repro_torch.data.deltas import PatchReport
 
 
@@ -167,7 +171,79 @@ def patch_padded(pg: PaddedGraph, g: CSRGraph, affected: np.ndarray,
     return new, False, int(hot_vs.size)
 
 
-def patch_sharded(*args, **kwargs):
-    raise NotImplementedError(
-        "the sharded layout's patch is not ported yet: it is ROADMAP.md "
-        "Queue 1 item 9 (Multi-device, torch.distributed)")
+def patch_sharded(sg: ShardedGraph, g: CSRGraph, affected: np.ndarray,
+                  plan_cap, plan_hot_cap):
+    """Splice the affected rows of the patched CSR ``g`` into this rank's
+    sharded layout ``sg`` (out of place, as :func:`patch_padded`).
+
+    Each rank holds the whole host CSR, so every rank decides the same
+    relayout and the same invalidated shards. Returns ``(new_sg, relayout,
+    invalidated_shards, hot_rows_updated)``; ``invalidated_shards`` are the
+    shards whose row block changed (all of them on a relayout)."""
+    aff = np.asarray(affected, np.int64)
+    if not aff.size:
+        return sg, False, np.zeros(0, np.int64), 0
+    hot_ids_h = sg.hot_ids.cpu().numpy()
+    real_hot = hot_ids_h.size > 0 and int(hot_ids_h[0]) != PAD_ID
+
+    def hot_pos_of(vs):
+        if not real_hot:
+            return np.full(len(vs), -1, np.int64)
+        pos = np.minimum(np.searchsorted(hot_ids_h, vs), len(hot_ids_h) - 1)
+        return np.where(hot_ids_h[pos] == vs, pos, -1)
+
+    was_hot = hot_pos_of(aff) >= 0
+    if _needs_relayout(g, aff, was_hot, sg.cap, sg.hot_cap,
+                       plan_cap, plan_hot_cap):
+        return ShardedGraph.from_csr(
+            g, sg.num_shards, cap=plan_cap, hot_cap=plan_hot_cap,
+            rank=sg.rank, device=sg.device), \
+            True, np.arange(sg.num_shards, dtype=np.int64), 0
+
+    deg_new = g.deg
+    lo = sg.rank * sg.n_local
+    mine = aff[(aff >= lo) & (aff < lo + sg.n_local)]
+    new = sg
+    if mine.size:
+        rows_adj, rows_wgt = _pack_rows(g, mine, sg.cap)
+        ap, ai = build_alias_rows(rows_wgt)
+        rows = torch.from_numpy(mine - lo).to(sg.device)
+        new = dataclasses.replace(
+            sg,
+            adj=_spliced(sg.adj, rows, rows_adj),
+            wgt=_spliced(sg.wgt, rows, rows_wgt),
+            alias_p=_spliced(sg.alias_p, rows, ap),
+            alias_i=_spliced(sg.alias_i, rows, ai),
+            deg=_spliced(sg.deg, rows, deg_new[mine]))
+
+    hot_vs = aff[was_hot]
+    if hot_vs.size:
+        h_adj, h_wgt = _pack_rows(g, hot_vs, sg.hot_cap)
+        h_ap, h_ai = build_alias_rows(h_wgt)
+        h_min, h_max = _masked_min_max(h_adj, h_wgt, deg_new[hot_vs])
+        hrows = torch.from_numpy(hot_pos_of(hot_vs)).to(sg.device)
+        new = dataclasses.replace(
+            new,
+            hot_adj=_spliced(sg.hot_adj, hrows, h_adj),
+            hot_wgt=_spliced(sg.hot_wgt, hrows, h_wgt),
+            hot_alias_p=_spliced(sg.hot_alias_p, hrows, h_ap),
+            hot_alias_i=_spliced(sg.hot_alias_i, hrows, h_ai),
+            hot_deg=_spliced(sg.hot_deg, hrows, deg_new[hot_vs]),
+            hot_wmin=_spliced(sg.hot_wmin, hrows, h_min),
+            hot_wmax=_spliced(sg.hot_wmax, hrows, h_max))
+    elif not real_hot and (g.n - 1) in aff:
+        # the no-hot sentinel's scalars copy row n-1 (see
+        # ``sharded_arrays``); kept in step so a patched layout equals a
+        # fresh one. They are never sampled
+        lo_e = int(g.row_ptr[g.n - 1])
+        d = min(int(g.row_ptr[g.n] - lo_e), sg.cap)
+        w = g.wgt[lo_e:lo_e + d]
+        wmin, wmax = (float(w.min()), float(w.max())) if d else (1.0, 1.0)
+        new = dataclasses.replace(
+            new,
+            hot_deg=torch.tensor(deg_new[g.n - 1:g.n], device=sg.device),
+            hot_wmin=torch.full((1,), wmin, device=sg.device),
+            hot_wmax=torch.full((1,), wmax, device=sg.device))
+
+    invalidated = np.unique(aff // sg.n_local)
+    return new, False, invalidated, int(hot_vs.size)

@@ -1,13 +1,15 @@
 """Sharded SGNS: range-partitioned embedding tables with lazy row-Adam —
-port of ``repro.train.shard`` at one process.
+port of ``repro.train.shard``.
 
-The JAX package partitions ``emb_in``/``emb_out`` and their Adam moments
-by vertex range over its ``rw`` mesh (shard *s* owns rows ``[s·n_loc,
-(s+1)·n_loc)``) and runs each epoch under ``shard_map``. Here the epoch is
-a Python loop over the fixed ``[steps, batch]`` grid, as the dense
-trainer's, and the world is one process (``row0 = 0``, ``n_loc`` = every
-row); a larger ``torch.distributed`` world is ROADMAP.md Queue 1 item 9b.
-Each step:
+``emb_in``/``emb_out`` and their Adam moments are partitioned by vertex
+range over the ranks of a table mesh (``launch.mesh.make_table_mesh``):
+rank *r* owns rows ``[r·n_loc, (r+1)·n_loc)``, where JAX's ``shard_map``
+gives them to device *r*. The epoch is a Python loop over the fixed
+``[steps, batch]`` grid, as the dense trainer's, and every rank runs the
+batch math (pairs, negatives, dedup, row grads, the deduped scatter) on
+the same inputs, so every float sum has the same grouping at any world
+size: a world of P gives the tables of a world of one bit for bit. Each
+step:
 
 * **dedup** — the batch's sorted unique centre rows and context/negative
   rows, padded to the power-of-two buffers ``u_in``/``u_out`` with the
@@ -15,7 +17,9 @@ Each step:
   positions equal ``jnp.unique(size=, fill_value=)``'s), with
   ``searchsorted`` inverses; made on the device without a host sync;
 * **owner gather** — the buffers' rows from the tables, ``+0.0`` for rows
-  this process does not own (the fill rows), through :func:`psum`;
+  this rank does not own (and the fill rows), summed over the mesh by
+  :func:`psum` (an all-reduce: one owner a row, so the sum is exact in any
+  order);
 * **row grads** — :func:`~repro_torch.kernels.sgns.sgns_row_grads` (the
   fused kernel's row entry, or its closed form);
 * **deduped scatter** — ``index_add_`` of ``g / denom`` onto the unique
@@ -23,6 +27,9 @@ Each step:
 * **lazy row-Adam** — :func:`~repro_torch.optim.optimizers.adam_rows` on
   the owned rows only; untouched rows keep their moments. O(rows·D) table
   work a step, against dense Adam's O(V·D).
+
+The unique buffers never hold more rows than the padded table
+(:func:`unique_rows`): a set of distinct ids cannot outgrow it.
 
 Tables and moments handed in are never written: the epoch copies them
 once, with one scratch row at ``n_loc`` that takes the fill rows' writes
@@ -34,6 +41,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import random as jr
 from repro_torch.core.skipgram import _deterministic
@@ -57,46 +65,54 @@ def table_rows(vocab: int, shards: int) -> int:
     return shards * math.ceil(vocab / max(shards, 1))
 
 
+def unique_rows(n: int, rows: int) -> int:
+    """A unique buffer's size for ``n`` ids of a ``rows``-row table: the
+    power-of-two bucket, never past the table (a unique set holds at most
+    ``rows`` ids)."""
+    return min(pow2_bucket(n), rows)
+
+
 def world_shards() -> int:
-    """Table shards of this run: the ``torch.distributed`` world's size, 1
-    outside one. More than one is not ported yet (item 9b)."""
-    import torch.distributed as dist
-    size = dist.get_world_size() \
+    """The ``torch.distributed`` world's size, 1 outside one."""
+    return dist.get_world_size() \
         if dist.is_available() and dist.is_initialized() else 1
-    if size > 1:
-        raise NotImplementedError(
-            f"sharded SGNS tables across a torch.distributed world of {size} "
-            f"are not ported yet: ROADMAP.md Queue 1 item 9b (Multi-device)")
-    return size
 
 
-def shard_params(params: dict, vocab: int, shards: int = 1) -> dict:
+def shard_params(params: dict, vocab: int, shards: int = 1,
+                 rank: int = 0) -> dict:
     """Pad the [V, D] tables with zero rows to ``table_rows(vocab,
-    shards)`` (at one shard they come back as they are)."""
+    shards)`` and keep rank ``rank``'s row block (at one shard the tables
+    come back as they are)."""
     vp = table_rows(vocab, shards)
+    n_loc = vp // shards
 
-    def pad(t):
-        if t.shape[0] == vp:
-            return t
-        return torch.cat([t, t.new_zeros(vp - t.shape[0], t.shape[1])])
-    return {k: pad(t) for k, t in params.items()}
-
-
-def sgns_exchange_bytes(u_rows: int, dim: int, num_shards: int,
-                        w_bytes: int = 4) -> int:
-    """Analytic per-device collective bytes of one sharded step (a copy of
-    ``repro.roofline.traffic.sgns_exchange_bytes``): the ``u_rows × dim``
-    buffers out and back through a ring all-reduce,
-    ``2·(S−1)/S·u_rows·dim·4``; 0 at one shard."""
-    if num_shards <= 1:
-        return 0
-    return int(2 * (num_shards - 1) / num_shards * u_rows * dim * w_bytes)
+    def block(t):
+        if t.shape[0] < vp:
+            t = torch.cat([t, t.new_zeros(vp - t.shape[0], t.shape[1])])
+        return t if shards == 1 else t[rank * n_loc:(rank + 1) * n_loc]
+    return {k: block(t) for k, t in params.items()}
 
 
-def psum(rows: torch.Tensor) -> torch.Tensor:
-    """The owner gather's sum over table shards (each adds its owned rows,
-    +0.0 elsewhere): the identity at one process."""
+def psum(rows: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The owner gather's sum over the table mesh (each rank adds its own
+    rows, +0.0 elsewhere): an all-reduce on the mesh's group, the identity
+    without one."""
+    if mesh is not None and mesh.group is not None:
+        dist.all_reduce(rows, group=mesh.group)
     return rows
+
+
+def gather_tables(params: dict, mesh=None) -> dict:
+    """Every rank's row blocks concatenated: the padded [rows, D] tables,
+    on every rank of the mesh."""
+    if mesh is None or mesh.group is None:
+        return params
+    out = {}
+    for k, t in params.items():
+        parts = [torch.empty_like(t) for _ in range(mesh.size)]
+        dist.all_gather(parts, t.contiguous(), group=mesh.group)
+        out[k] = torch.cat(parts)
+    return out
 
 
 def unique_padded(x: torch.Tensor, size: int, fill: int) -> torch.Tensor:
@@ -129,17 +145,20 @@ def _drop_scratch(tables: dict, n_loc: int) -> dict:
 
 def train_epoch_sharded(params, opt_state, c, x, valid, perm2d, prob, alias,
                         key, *, opt, negatives, backend, n_pairs, u_in,
-                        u_out):
-    """One epoch over one round on the sharded tables: per row of the
+                        u_out, mesh=None):
+    """One epoch over one round on this rank's row blocks (``params`` and
+    the moments: [n_loc, D]; all rows without a ``mesh``): per row of the
     ``[steps, batch]`` permutation grid, the dedup, owner gather, row
     grads, deduped scatter and lazy row-Adam of the module docstring. Same
-    (round, epoch, step) keying as the dense ``_train_epoch``. Returns
-    (params, opt_state, per-step losses [steps]); the inputs are not
-    written."""
-    vp = params["emb_in"].shape[0]
-    row0, n_loc = 0, vp          # one process owns every row
+    (round, epoch, step) keying as the dense ``_train_epoch``. Every rank
+    of the mesh calls it on the same inputs. Returns (params, opt_state,
+    per-step losses [steps]); the inputs are not written."""
+    n_loc = params["emb_in"].shape[0]
+    shards, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
+    vp, row0 = n_loc * shards, rank * n_loc
     steps, batch_size = perm2d.shape
-    if u_in < batch_size or u_out < batch_size * (1 + negatives):
+    if u_in < min(batch_size, vp) or \
+            u_out < min(batch_size * (1 + negatives), vp):
         raise ValueError(f"unique buffers {u_in}, {u_out} are smaller than "
                          f"the batch's {batch_size} centre and "
                          f"{batch_size * (1 + negatives)} context rows")
@@ -165,7 +184,7 @@ def train_epoch_sharded(params, opt_state, c, x, valid, perm2d, prob, alias,
         inv_n = torch.searchsorted(uo, neg)
         owned = {"emb_in": _owned(uc, row0, n_loc),
                  "emb_out": _owned(uo, row0, n_loc)}
-        rows = {k: psum(torch.where(keep, tab[k][li], 0.0))
+        rows = {k: psum(torch.where(keep, tab[k][li], 0.0), mesh)
                 for k, (li, keep) in owned.items()}
         ci = rows["emb_in"][inv_c]
         po = rows["emb_out"][inv_p]

@@ -51,8 +51,8 @@ class TrainStats:
     ``shards``             — table shards (1 = dense single-device tables).
     ``collective_bytes``   — analytic per-device bytes the sparse row
                              gathers/updates moved across table shards
-                             (``train.shard.sgns_exchange_bytes``): 0 at
-                             the one shard the port runs today.
+                             (``roofline.traffic.sgns_exchange_bytes``): 0 at
+                             one shard.
     ``exposed_collective_bytes`` — the part on the critical path. The
                              sparse gather is barrier-style inside each
                              step today, so exposed == total; the field

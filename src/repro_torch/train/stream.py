@@ -18,7 +18,8 @@ Streamed and concat consumption are bit-identical: every batch depends only
 on (round index, epoch, step index) and the cumulative corpus counts up to
 that round, never on arrival timing, and on the card every scatter is
 deterministic. ``shard_tables=True`` trains the tables with lazy row-Adam
-on each batch's unique rows (``repro_torch.train.shard``) at one process.
+on each batch's unique rows (``repro_torch.train.shard``), partitioned by
+vertex range over the ranks of a table mesh.
 """
 from __future__ import annotations
 
@@ -34,11 +35,13 @@ from repro_torch.core.alias import build_alias
 from repro_torch.core.skipgram import (SGNSConfig, init_params,
                                        normalize_embeddings, sgns_grads)
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_table_mesh
 from repro_torch.optim.optimizers import adam, adam_rows, apply_updates
+from repro_torch.roofline.traffic import sgns_exchange_bytes
 from repro_torch.train.pairs import device_negatives, device_pairs, num_pairs
-from repro_torch.train.shard import (pow2_bucket, sgns_exchange_bytes,
-                                     shard_params, train_epoch_sharded,
-                                     world_shards)
+from repro_torch.train.shard import (gather_tables, shard_params,
+                                     table_rows, train_epoch_sharded,
+                                     unique_rows)
 from repro_torch.train.stats import TrainRecorder, TrainStats
 
 
@@ -92,7 +95,12 @@ class StreamingSGNSTrainer:
     ``shard_tables=True`` trains with lazy row-Adam on each batch's unique
     rows (``repro_torch.train.shard``): a different optimizer from the
     dense default (untouched rows keep their moments), so compare it with
-    ``shard_tables=True`` runs, not with the dense path.
+    ``shard_tables=True`` runs, not with the dense path. Its tables are
+    partitioned over the ranks of ``make_table_mesh(mesh)`` (every rank of
+    the default group without a ``mesh``; one process outside a
+    ``torch.distributed`` world); every rank of it constructs the trainer
+    and feeds it the same rounds, and gets the same tables, bit for bit,
+    at any world size.
     """
 
     def __init__(self, vocab: int, dim: int = 128, window: int = 10,
@@ -100,7 +108,9 @@ class StreamingSGNSTrainer:
                  lr: float = 0.025, epochs: int = 1, seed: int = 0,
                  sgns_backend: str = "jnp", power: float = 0.75,
                  record_loss: bool = True, shard_tables: bool = False,
-                 device=None):
+                 mesh=None, device=None):
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.vocab = vocab
         self.dim = dim
@@ -116,12 +126,19 @@ class StreamingSGNSTrainer:
         scfg = SGNSConfig(vocab=vocab, dim=dim, negatives=negatives)
         self._key = jr.PRNGKey(seed, device=self.device)
         self.params = init_params(scfg, self._key)
+        self.mesh = None
         if self.shard_tables:
-            self.shards = world_shards()
-            self.params = shard_params(self.params, vocab, self.shards)
+            self.mesh = make_table_mesh(mesh, device=self.device)
+            if not self.mesh.member:
+                raise ValueError("this rank holds no shard of the table mesh "
+                                 f"over ranks {self.mesh.ranks}")
+            self.shards = self.mesh.size
+            self.params = shard_params(self.params, vocab, self.shards,
+                                       self.mesh.rank)
             self._opt = adam_rows(lr)
-            self._u_in = pow2_bucket(batch_size)
-            self._u_out = pow2_bucket(batch_size * (1 + negatives))
+            rows = table_rows(vocab, self.shards)
+            self._u_in = unique_rows(batch_size, rows)
+            self._u_out = unique_rows(batch_size * (1 + negatives), rows)
         else:
             self.shards = 1
             self._opt = adam(lr)
@@ -181,7 +198,8 @@ class StreamingSGNSTrainer:
             if self.shard_tables:
                 self.params, self.opt_state, losses = train_epoch_sharded(
                     self.params, self.opt_state, c, x, valid, perm2d, prob,
-                    alias, skey, u_in=self._u_in, u_out=self._u_out, **kw)
+                    alias, skey, u_in=self._u_in, u_out=self._u_out,
+                    mesh=self.mesh, **kw)
             else:
                 self.params, self.opt_state, losses = _train_epoch(
                     self.params, self.opt_state, c, x, valid, perm2d, prob,
@@ -221,12 +239,18 @@ class StreamingSGNSTrainer:
             seen += 1
         return self.finish(time.perf_counter() - t_start)
 
+    def tables(self) -> dict:
+        """The whole tables on every rank: the ranks' row blocks gathered
+        (``[table_rows, D]``; the params themselves off the sharded
+        path). Every rank of the table mesh calls it."""
+        return gather_tables(self.params, self.mesh)
+
     def finish(self, wall_seconds: Optional[float] = None
                ) -> Tuple[np.ndarray, TrainStats]:
         """Wait for the queued steps, fetch embeddings, freeze stats."""
         t0 = time.perf_counter()
         # [:vocab] strips the shard-padding rows
-        emb = normalize_embeddings(self.params).cpu().numpy()[:self.vocab]
+        emb = normalize_embeddings(self.tables()).cpu().numpy()[:self.vocab]
         if self._pair_counts:
             self.recorder.pairs = int(sum(int(p) for p in self._pair_counts))
             self._pair_counts = [torch.tensor(self.recorder.pairs)]
@@ -242,16 +266,19 @@ class StreamingSGNSTrainer:
         return torch.cat(self._losses).cpu().numpy()
 
 
-def train_streamed(g, cfg, checkpointer=None, device=None, **overrides
-                   ) -> Tuple[np.ndarray, TrainStats]:
+def train_streamed(g, cfg, mesh=None, checkpointer=None, device=None,
+                   **overrides) -> Tuple[np.ndarray, TrainStats]:
     """End-to-end streamed node2vec stage 2: walk rounds through a
     :class:`~repro_torch.runtime.fault_tolerance.WalkRoundRunner`
-    (checkpointed when given a checkpointer) feeding a
-    :class:`StreamingSGNSTrainer`. Same round seeds as ``node2vec``, so a
-    concat replay of the same config reproduces it bit for bit."""
+    (checkpointed when given a checkpointer; sharded over ``mesh`` when
+    given one) feeding a :class:`StreamingSGNSTrainer`. Same round seeds as
+    ``node2vec``, so a concat replay of the same config reproduces it bit
+    for bit."""
     from repro_torch.runtime.fault_tolerance import WalkRoundRunner
-    runner = WalkRoundRunner(g, cfg, checkpointer=checkpointer,
+    runner = WalkRoundRunner(g, cfg, mesh=mesh, checkpointer=checkpointer,
                              device=device)
+    if overrides.get("shard_tables") and "mesh" not in overrides:
+        overrides["mesh"] = runner.engine.mesh  # tables align with graph
     trainer = StreamingSGNSTrainer.from_config(runner.engine.n, cfg,
                                                device=device, **overrides)
     return trainer.train(runner.rounds())

@@ -140,7 +140,19 @@ def test_reference_backend_reads_clamped_rows(mode, backend):
 
 
 def test_sharded_backend_not_ported():
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        WalkPlan(backend="sharded")
+    """The sharded backend builds and walks (a world of one here; the
+    2-process world is tests/test_torch_walk_distributed.py) and equals
+    the JAX package's walks; bad backends and capacities are refused."""
+    kw = dict(p=0.5, q=2.0, length=8, cap=24)
+    eng = WalkEngine.build(SKEW, WalkPlan(backend="sharded", **kw),
+                           device="cpu")
+    assert (eng.mesh.size, eng.capacity) == (1, 512)
+    res = eng.run(seed=3)
+    assert np.array_equal(res.walks, _jax_walks(SKEW, 3, **kw))
+    assert (res.stats.backend, res.stats.dropped,
+            res.stats.collective_bytes) == ("sharded", 0, 0)
     with pytest.raises(ValueError):
         WalkPlan(backend="nope")
+    for bad in (0, -1, "many", 1.5):
+        with pytest.raises(ValueError, match="capacity"):
+            WalkPlan(backend="sharded", capacity=bad)

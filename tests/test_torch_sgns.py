@@ -370,5 +370,10 @@ def test_node2vec_config_plan():
     assert (plan.p, plan.q, plan.length, plan.cap, plan.mode, plan.backend,
             plan.pipeline) == (0.5, 2.0, 7, 16, "approx", "fused", True)
     assert Node2VecConfig().plan().backend == "reference"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Node2VecConfig(backend="sharded").plan()
+    sharded = Node2VecConfig(backend="sharded", capacity="auto",
+                             strict_drops=True).plan()
+    assert (sharded.backend, sharded.capacity, sharded.strict_drops) == \
+        ("sharded", "auto", True)
+    assert Node2VecConfig().plan(mesh=object()).backend == "sharded"
+    assert Node2VecConfig(backend="fused").plan(mesh=object()).backend == \
+        "fused"

@@ -26,7 +26,8 @@ from repro_torch import random as jr
 from repro_torch.kernels.sgns import sgns_row_grads
 from repro_torch.optim.optimizers import AdamState, adam, adam_rows
 from repro_torch.train.pairs import device_negatives
-from repro_torch.train.shard import (pow2_bucket, sgns_exchange_bytes,
+from repro_torch.roofline.traffic import sgns_exchange_bytes
+from repro_torch.train.shard import (pow2_bucket,
                                      table_rows, train_epoch_sharded,
                                      unique_padded, world_shards)
 from repro_torch.train.stream import StreamingSGNSTrainer
@@ -271,12 +272,16 @@ def test_sharded_differs_from_dense():
 
 
 def test_world_larger_than_one_raises(monkeypatch):
+    """``world_shards`` is the world's size (a real world of two trains in
+    tests/test_torch_dist_train.py); outside a world the trainer holds
+    every row."""
     import torch.distributed as dist
     assert world_shards() == 1
+    tr = _trainer()
+    assert (tr.shards, tr.mesh.size, tr.mesh.group) == (1, 1, None)
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        _trainer()
+    assert world_shards() == 2
 
 
 def test_opt_state_handed_in_is_unchanged():

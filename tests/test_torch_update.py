@@ -16,9 +16,13 @@ from repro.data.deltas import DeltaBatch as JBatch
 from repro.data.deltas import weight_churn, zipf_churn
 from repro.engine import WalkEngine as JEngine
 from repro.engine import WalkPlan as JPlan
+from repro.core.walk_distributed import ShardedGraph as JShardedGraph
 from repro.engine.update import patch_padded as j_patch_padded
+from repro.engine.update import patch_sharded as j_patch_sharded
 from repro.runtime.fault_tolerance import WalkRoundRunner as JRunner
 from repro_torch.core.graph import FIELDS, PaddedGraph
+from repro_torch.core.walk_distributed import (HOT_FIELDS, ROW_FIELDS,
+                                               ShardedGraph)
 from repro_torch.core.node2vec import Node2VecConfig
 from repro_torch.data.deltas import DeltaBatch
 from repro_torch.data.store import open_graph
@@ -230,13 +234,41 @@ def test_runner_updates_land_at_round_r_plus_2():
 
 
 def test_update_without_store_and_sharded_raise():
+    """An engine without a store refuses ``update``; ``patch_sharded``
+    splices each rank's block and the hot rows as JAX's does the global
+    arrays (vertex 255 is a hot row at cap 16 and the no-hot sentinel's
+    source without a cap; cold rows on both shards)."""
     pg = PaddedGraph.build(open_graph(SMALL).graph, cap=16, device="cpu")
     eng = WalkEngine.build(pg, WalkPlan(length=4, cap=16))
     assert eng.store is None
     with pytest.raises(ValueError, match="GraphStore"):
         eng.update(DeltaBatch.build(add=([0], [1])))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        patch_sharded(None, None, np.zeros(1, np.int64), 16, None)
+    for cap in (16, None):
+        st, jst = open_graph(SMALL), j_open_graph(SMALL)
+        jsg = JShardedGraph.from_csr(jst.graph, 2, cap=cap)
+        sgs = [ShardedGraph.from_csr(st.graph, 2, cap=cap, rank=r,
+                                     device="cpu")
+               for r in range(2)]
+        add = ([3, 255, 7], [140, 5, 131])
+        patch = st.apply(DeltaBatch.build(add=add))
+        jpatch = jst.apply(JBatch.build(add=add))
+        jnew, jre, jinv, jhot = j_patch_sharded(
+            jsg, jst.graph, jpatch.affected, cap, None)
+        for r, sg in enumerate(sgs):
+            new, re, inv, hot = patch_sharded(sg, st.graph, patch.affected,
+                                              cap, None)
+            assert (re, hot) == (jre, jhot) == (False, 1 if cap else 0)
+            assert np.array_equal(inv, jinv) and inv.tolist() == [0, 1]
+            rows = slice(r * sg.n_local, (r + 1) * sg.n_local)
+            for f in ROW_FIELDS + HOT_FIELDS:
+                want = np.asarray(getattr(jnew, f))
+                assert np.array_equal(getattr(new, f).numpy(),
+                                      want[rows] if f in ROW_FIELDS
+                                      else want), f
+                assert torch.equal(getattr(sg, f), getattr(
+                    ShardedGraph.from_csr(open_graph(SMALL).graph, 2,
+                                          cap=cap, rank=r, device="cpu"),
+                    f))
 
 
 def test_empty_update_keeps_the_layout():
