@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (walks, SGNS training, LM serving,
 embedding serving under graph churn, the training launcher on an on-disk
-edge list, and the sharded walk backend and tables across a
-``torch.distributed`` world) on one NVIDIA GPU.
+edge list, the sharded walk backend and tables across a
+``torch.distributed`` world, LM training and the examples) on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -162,12 +163,33 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    on ``wec:k=12,deg=100,seed=0`` in the ranks' world, its
    ``embeddings.npy`` equal to the same command's in this process (a
    world of one).
+11. path I — LM training at yi-6b's full width (d_model 4,096, 32 heads on
+   4 KV heads, head_dim 128, d_ff 11,008, vocab 64,000, bf16 compute, f32
+   params, remat on) cut to 2 layers, right after path E, through the
+   launcher's ``run_lm`` and ``lm_train_step`` (``loss_fn``'s grads by
+   autograd, ``clip_by_global_norm(., 1.0)``, AdamW lr 3e-4). I1: the
+   same params in float32 on the card and on the CPU, one ``loss_fn``
+   and its grads' global norm at B=1, S=128 (relative gaps within 1e-4),
+   then 5 launcher steps at ``smoke_config("yi-6b")`` on both (losses
+   and grad norms within 1e-4 relative). I2: ``run_lm`` for 15 steps at
+   B=8, S=1,024 on path A's round-0 walks modulo the vocabulary
+   (``walks_to_lm_tokens``), which checkpoints ``(params, opt_state)``
+   at step 15; a fresh ``run_lm`` on the same directory to 30 steps,
+   whose restored state must be ``torch.equal`` to the saved; the loss
+   finite, its last 5 steps' mean below its first 5's; ms/step and
+   tokens/s of the steady steps, the first run's peak memory, and a
+   profile of 3 more steps. None of the four kernels may launch;
+12. the examples — ``examples/torch/{quickstart,classify_nodes,
+   serve_embeddings,distributed_walks}.py`` on the card in subprocesses
+   started together (``distributed_walks.py`` at world 1); each must
+   exit 0.
 
 It prints the card's name and power limit, the build seconds, the
 registers and spills of the walk kernels and the tensor-core kernel,
 walker-steps per second for each walk phase, prefill tokens/s and decode
 ms/token, path F's latency quantiles, QPS, hit rate, occupancy, refresh
-host ms and device-busy share, a ``{"kernels": [...]}`` line, and last
+host ms and device-busy share, LM training's ms/step, tokens/s, peak
+memory and busy share, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 
     python3 chip_smoke.py --walks
@@ -242,6 +264,18 @@ E_ARCH, E_LAYERS = "yi-6b", 4   # published widths, depth cut 32 -> 4
 E_BATCH, E_SEQ, E_GEN = 4, 4096, 32
 E_LONG = 32768                  # prefill_32k's length, a second reading
 E_CPU_SEQ, E_CPU_GEN, E_CPU_TOL = 512, 8, 1e-3
+I_LAYERS = 2                    # path I: yi-6b's widths, depth 32 -> 2
+I_BATCH, I_SEQ = 8, 1024
+I_STEPS, I_SAVE = 30, 15        # the first run stops (and saves) at 15
+I_LR = 3e-4                     # the launcher's default
+I_CPU_SEQ = 128                 # I1: B=1 at full width, card vs CPU
+I_SMOKE_STEPS = 5               # I1: AdamW steps at the smoke config
+I_TOL = 1e-4                    # I1: relative, losses and grad norms
+I_PROFILE_STEPS = 3
+I_WORK = ROOT / "build" / "chip_smoke_i"     # path I's checkpoints
+EXAMPLES = ("quickstart", "classify_nodes", "serve_embeddings",
+            "distributed_walks")
+EXAMPLES_WAIT_S = 300
 F_REQUESTS = 5_000              # serve_graph --full replays 50,000
 F_WINDOW, F_K = 10, 10
 F_PROFILED = 2_000              # requests of path F traced for busy share
@@ -2085,6 +2119,247 @@ def path_e(np, torch, walks, one, dev="cuda"):
     return launches, max(err, err_long), r
 
 
+def lm_args(torch, ckpt: Path, steps: int):
+    """The LM launcher's arguments for path I (its parser's defaults but
+    these), on the card."""
+    from repro_torch.launch import train as LT
+    args = LT.parser().parse_args([
+        "--task", "lm", "--arch", E_ARCH, "--batch", str(I_BATCH),
+        "--seq", str(I_SEQ), "--steps", str(steps), "--lr", str(I_LR),
+        "--log-every", "1", "--ckpt-dir", str(ckpt)])
+    args.device = torch.device(DEV)
+    return args
+
+
+def _leaves(tree):
+    return [x for k in sorted(tree) for x in
+            (_leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
+
+
+def i1_card_vs_cpu(np, torch, cfg, walks) -> dict:
+    """I1: one ``loss_fn`` and its grads' global norm at yi-6b's width in
+    float32 (B=1, S=128) on the card and on the CPU from the same params;
+    then ``I_SMOKE_STEPS`` launcher steps at the smoke config on both.
+    Relative gaps, each within ``I_TOL``."""
+    import dataclasses
+    from repro_torch import random as jr
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.corpus import walks_to_lm_tokens
+    from repro_torch.launch.train import lm_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim.grad_utils import global_norm, value_and_grad
+    from repro_torch.optim.optimizers import adamw
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    seqs = torch.from_numpy(walks_to_lm_tokens(walks % cfg.vocab,
+                                               I_CPU_SEQ + 1)[:1])
+    batch = {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
+    params = M.init_params(cfg32, jr.PRNGKey(0), DEV)
+    out = {}
+    for name in ("card", "cpu"):
+        if name == "cpu":
+            params = _to_cpu(params)
+            torch.cuda.empty_cache()
+        dev = params["embed"]["tok"].device
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(
+            lambda p, b: M.loss_fn(cfg32, p, b), params,
+            {k: v.to(dev) for k, v in batch.items()})
+        out[name] = (float(loss), float(global_norm(grads)),
+                     time.perf_counter() - t0)
+        del grads
+    del params
+    gap = (rel(out["card"][0], out["cpu"][0]),
+           rel(out["card"][1], out["cpu"][1]))
+    log(f"I1: {cfg.name} width, float32, B=1 S={I_CPU_SEQ}: loss card "
+        f"{out['card'][0]!r} CPU {out['cpu'][0]!r} (rel {gap[0]:.3g}), "
+        f"grad global norm card {out['card'][1]!r} CPU {out['cpu'][1]!r} "
+        f"(rel {gap[1]:.3g}; tolerance {I_TOL}); loss + grads "
+        f"{out['card'][2]:.3f} s card, {out['cpu'][2]:.3f} s CPU host")
+    if not max(gap) <= I_TOL:
+        raise AssertionError(f"I1: card and CPU disagree at full width: "
+                             f"{gap}")
+
+    small = smoke_config(cfg.name)
+    opt = adamw(I_LR)
+    rng = np.random.default_rng(0)
+    toks = walks_to_lm_tokens(walks % small.vocab, 65)
+    batches = [toks[rng.integers(0, toks.shape[0], 4)]
+               for _ in range(I_SMOKE_STEPS)]
+    p_card = M.init_params(small, jr.PRNGKey(0), DEV)
+    runs = {}
+    for name, p in (("card", p_card), ("cpu", _to_cpu(p_card))):
+        dev = p["embed"]["tok"].device
+        state = opt.init(p)
+        seen = []
+        for b in batches:
+            t = torch.from_numpy(b).to(dev)
+            p, state, loss, gnorm = lm_train_step(
+                small, opt, p, state, {"tokens": t[:, :-1],
+                                       "labels": t[:, 1:]})
+            seen.append((float(loss), float(gnorm)))
+        runs[name] = seen
+    smoke_gap = max(rel(a, b) for ca, cc in zip(runs["card"], runs["cpu"])
+                    for a, b in zip(ca, cc))
+    log(f"I1: {small.name} smoke config, {I_SMOKE_STEPS} AdamW steps: "
+        f"losses card {[x for x, _ in runs['card']]}, CPU "
+        f"{[x for x, _ in runs['cpu']]}; largest relative gap of losses and "
+        f"grad norms {smoke_gap:.3g} (tolerance {I_TOL})")
+    if not smoke_gap <= I_TOL:
+        raise AssertionError(f"I1: smoke steps differ, {smoke_gap}")
+    return {"loss_gap": gap[0], "gnorm_gap": gap[1], "smoke_gap": smoke_gap}
+
+
+def kernel_counts(K, S, FA) -> tuple:
+    return (K.node2vec_step.launches, K.node2vec_walk.launches,
+            S.sgns_fused.launches, FA.flash_attention.launches)
+
+
+def path_i(np, torch, walks) -> dict:
+    """Path I: LM training at yi-6b's full width cut to ``I_LAYERS``
+    layers, through the launcher's ``run_lm`` on path A's walks: I1 card vs
+    CPU; I2 ``I_SAVE`` steps, then a fresh ``run_lm`` resumed from its
+    checkpoint to ``I_STEPS`` (the restored state ``torch.equal`` to the
+    saved), the loss falling, and a profiled window of
+    ``I_PROFILE_STEPS`` more steps. Runs none of the four kernels."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import walks_to_lm_tokens
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import node2vec_step as K
+    from repro_torch.kernels import sgns as S
+    from repro_torch.launch import train as LT
+    from repro_torch.optim.optimizers import adamw
+    cfg = dataclasses.replace(get_config(E_ARCH), num_layers=I_LAYERS)
+    log(f"I: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab} layers={cfg.num_layers} ({cfg.param_count():,} "
+        f"params) dtype={cfg.dtype} params {cfg.param_dtype} "
+        f"remat={cfg.remat}")
+    r = i1_card_vs_cpu(np, torch, cfg, walks)
+    torch.cuda.empty_cache()
+
+    tokens = walks_to_lm_tokens(walks % cfg.vocab, I_SEQ + 1)
+    shutil.rmtree(I_WORK, ignore_errors=True)
+    before = kernel_counts(K, S, FA)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = LT.run_lm(lm_args(torch, I_WORK, I_SAVE), cfg, tokens)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        second = LT.run_lm(lm_args(torch, I_WORK, I_STEPS), cfg, tokens)
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(I_WORK, ignore_errors=True)
+    if second["start_step"] != I_SAVE or second["restored"] is None:
+        raise AssertionError(f"I2: the second run started at step "
+                             f"{second['start_step']}, want {I_SAVE}")
+    params, state = second["restored"]
+    saved = first["opt_state"]
+    pairs = list(zip(_leaves(first["params"]) + _leaves(saved.mu)
+                     + _leaves(saved.nu) + [saved.count],
+                     _leaves(params) + _leaves(state.mu) + _leaves(state.nu)
+                     + [state.count]))
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError("I2: the restored (params, opt_state) differ "
+                             "from the saved")
+    del first["params"], first["opt_state"], second["restored"], params, \
+        state, saved, pairs
+    losses = first["losses"] + second["losses"]
+    head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if len(losses) != I_STEPS or not np.isfinite(losses).all() or \
+            not tail < head:
+        raise AssertionError(f"I2: losses {losses}")
+    # steady steps: each run's steps after its first (every step prints,
+    # so each ends after the device finished it)
+    dts = np.concatenate([np.diff(run["step_end"])
+                          for run in (first, second)])
+    r["ms_step"] = float(np.median(dts)) * 1e3
+    r["ms_step_mean"] = float(np.mean(dts)) * 1e3
+    r["tokens_s"] = I_BATCH * I_SEQ / (r["ms_step"] / 1e3)
+    log(f"I2: {I_STEPS} steps B={I_BATCH} S={I_SEQ} on path A's walks "
+        f"({tokens.shape[0]} sequences): loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, mean of the first 5 {head:.4f}, of the last 5 "
+        f"{tail:.4f}; restored state at step {I_SAVE} torch.equal the "
+        f"saved; ms/step median {r['ms_step']:.2f} (mean "
+        f"{r['ms_step_mean']:.2f}, {len(dts)} steady steps) = "
+        f"{r['tokens_s']:.6g} tokens/s; peak memory {r['peak_gb']:.2f} GB "
+        f"(first run); runs {first_s:.2f} s and {second_s:.2f} s host "
+        f"(init, checkpoint writes and the resume included)")
+
+    final = (second["params"], second["opt_state"])
+    opt = adamw(I_LR)
+    rng = np.random.default_rng(1)
+
+    def steps():
+        p, st = final
+        for _ in range(I_PROFILE_STEPS):
+            seqs = torch.from_numpy(tokens[rng.integers(
+                0, tokens.shape[0], I_BATCH)]).to(DEV)
+            p, st, _, _ = LT.lm_train_step(cfg, opt, p, st, {
+                "tokens": seqs[:, :-1], "labels": seqs[:, 1:]})
+    wall, busy, events = profiled(torch, steps)
+    log_profile("I train", f"{I_PROFILE_STEPS} steps", wall, busy, events)
+    r["busy"] = busy / wall
+    after = kernel_counts(K, S, FA)
+    if after != before:
+        raise AssertionError(f"I: LM training launched kernels: {before} "
+                             f"-> {after}")
+    del final, second
+    torch.cuda.empty_cache()
+    return r
+
+
+def run_examples(torch) -> None:
+    """The four ``examples/torch/`` scripts on the card, in subprocesses
+    started together (``distributed_walks.py`` at world 1); any non-zero
+    exit fails the run. Their output is printed as they left it."""
+    work = ROOT / "build" / "chip_smoke_examples"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
+    procs = {}
+    t0 = time.perf_counter()
+    for name in EXAMPLES:
+        argv = [sys.executable, str(ROOT / "examples" / "torch" /
+                                    f"{name}.py")]
+        if name == "distributed_walks":
+            argv += ["--ckpt-dir", str(work / "walks")]
+        out = open(work / f"{name}.log", "w+")
+        proc = subprocess.Popen(argv, stdout=out, stderr=subprocess.STDOUT,
+                                cwd=ROOT, env=env)
+        CHILDREN.append(proc)
+        procs[name] = (proc, out)
+    failed = []
+    for name, (proc, out) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, EXAMPLES_WAIT_S -
+                                       (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = "timeout"
+        out.seek(0)
+        text = out.read()
+        out.close()
+        log(f"examples/torch/{name}.py: exit {rc}, "
+            f"{time.perf_counter() - t0:.1f} s since the phase began")
+        for line in text.strip().splitlines()[-12:]:
+            log(f"  | {line}")
+        if rc != 0:
+            failed.append(name)
+    shutil.rmtree(work, ignore_errors=True)
+    if failed:
+        raise AssertionError(f"examples failed: {failed}")
+
+
 def f_small_gates(np, torch, K, table) -> None:
     """Path F's gates (b) and (c) on ``F_SMALL_SPEC``. (b): each refresh's
     layout on the card equals a from-scratch build at the same store
@@ -2634,9 +2909,15 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     flash_launches, err, fl = path_e(np, torch, lm_walks, one_rounding)
     flash_err = max(flash_err, err)
-    del lm_walks
     since(t_start, "path E")
     torch.cuda.empty_cache()
+
+    # ---- path I: LM training at yi-6b's width through the launcher -----
+    lm = path_i(np, torch, lm_walks)
+    del lm_walks
+    since(t_start, "path I")
+    run_examples(torch)
+    since(t_start, "examples")
 
     # ---- path F: embedding serving with churn, step kernel per superstep
     f = path_f(np, torch, K, store_a, table_c)
@@ -2715,6 +2996,11 @@ def main(argv) -> int:
          "bound_ms_32k": fl["bound_32k"][0],
          "bound_by_32k": fl["bound_32k"][1]},
     ]
+    log(f"I (LM training, {E_ARCH}'s widths, {I_LAYERS} layers, "
+        f"B={I_BATCH} S={I_SEQ}): {lm['ms_step']:.2f} ms/step, "
+        f"{lm['tokens_s']:.6g} tokens/s, device busy {lm['busy']:.3f}, "
+        f"peak {lm['peak_gb']:.2f} GB; card vs CPU {lm['loss_gap']:.3g} "
+        f"(loss), {lm['gnorm_gap']:.3g} (grad norm)")
     log(f"card: {smi}")       # again, where the output's tail keeps it
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,8 +2,8 @@
 
 This system's counterpart of carrying weights across: a device layout built
 by ``repro.core.graph.PaddedGraph.build``, a ``jax.random`` key, SGNS
-parameters and Adam state, and the LM's params, each handed over as numpy
-arrays (``np.asarray`` of every field), become the port's
+parameters, the LM's params and Adam state (of either), each handed over
+as numpy arrays (``np.asarray`` of every field), become the port's
 :class:`PaddedGraph`, key, params dicts and :class:`AdamState`. Nothing
 here imports JAX.
 """
@@ -43,7 +43,9 @@ def key_from_numpy(key) -> torch.Tensor:
 
 
 def _tables(tree: dict, dev: torch.device) -> dict:
-    return {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+    """float32 tensors on ``dev`` of a dict of arrays, nested freely."""
+    return {k: _tables(v, dev) if isinstance(v, dict) else
+            torch.from_numpy(np.array(v, np.float32)).to(dev)
             for k, v in tree.items()}
 
 
@@ -58,7 +60,9 @@ def sgns_params_from_numpy(params: dict, device=None) -> dict:
 
 def adam_state_from_numpy(state, device=None) -> AdamState:
     """A JAX ``AdamState`` (``count``, ``mu``, ``nu``; a NamedTuple or a
-    dict of numpy arrays) -> the port's :class:`AdamState`."""
+    dict of numpy arrays) -> the port's :class:`AdamState`. The moments
+    may be SGNS tables or an LM's params tree (float32 moments of float32
+    params)."""
     if not isinstance(state, dict):
         state = state._asdict()
     dev = resolve_device(device)

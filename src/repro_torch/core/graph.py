@@ -81,6 +81,26 @@ class CSRGraph:
         return CSRGraph(n=n, row_ptr=row_ptr, col=dst.astype(np.int32),
                         wgt=wgt.astype(np.float32))
 
+    def trim_top_weights(self, k: int) -> "CSRGraph":
+        """Spark-Node2Vec's trim: keep only the ``k`` highest-weight edges
+        of each vertex (paper §2.2), the baseline of the classification
+        example; the JAX package's choice of edges among tied weights."""
+        keep_idx = []
+        for v in range(self.n):
+            lo, hi = self.row_ptr[v], self.row_ptr[v + 1]
+            if hi - lo <= k:
+                keep_idx.append(np.arange(lo, hi))
+            else:
+                top = np.argpartition(-self.wgt[lo:hi], k - 1)[:k]
+                keep_idx.append(lo + np.sort(top))
+        keep = np.concatenate(keep_idx) if keep_idx else \
+            np.zeros(0, np.int64)
+        src = np.repeat(np.arange(self.n, dtype=np.int64),
+                        [len(ix) for ix in keep_idx])
+        return CSRGraph.from_edges(self.n, src,
+                                   self.col[keep].astype(np.int64),
+                                   self.wgt[keep], undirected=False)
+
 
 FIELDS = ("adj", "wgt", "deg", "alias_p", "alias_i", "w_min", "w_max",
           "hot_pos", "hot_ids", "hot_adj", "hot_wgt", "hot_alias_p",

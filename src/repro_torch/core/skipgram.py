@@ -20,7 +20,6 @@ switched on only around the scatter.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Dict, Optional
 
@@ -28,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
+from repro_torch.device import deterministic
 from repro_torch.kernels.sgns import sgns_fused_tables
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 
@@ -79,22 +79,6 @@ def sgns_loss(params, center: torch.Tensor, pos: torch.Tensor,
     return (per * valid).sum() / denom
 
 
-@contextlib.contextmanager
-def _deterministic(device: torch.device):
-    """Deterministic algorithms on the card for the enclosed ops (scatter-
-    adds sort their indices instead of racing float atomics)."""
-    if device.type != "cuda":
-        yield
-        return
-    prev = torch.are_deterministic_algorithms_enabled()
-    warn = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(prev, warn_only=warn)
-
-
 def sgns_grads(params, batch, backend: str = "jnp"):
     """Loss and parameter gradients (dense ``[V, D]`` tables) for one SGNS
     batch: ``center``/``pos`` [B], ``neg`` [B, K], optional ``valid`` [B]."""
@@ -106,7 +90,7 @@ def sgns_grads(params, batch, backend: str = "jnp"):
     if backend == "jnp":
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
-        with _deterministic(dev), torch.enable_grad():
+        with deterministic(dev), torch.enable_grad():
             loss = sgns_loss(leaves, center, pos, negs, valid)
             g_in, g_out = torch.autograd.grad(
                 loss, (leaves["emb_in"], leaves["emb_out"]))
@@ -124,7 +108,7 @@ def sgns_grads(params, batch, backend: str = "jnp"):
         params["emb_in"], params["emb_out"], _int32(batch["center"]),
         _int32(batch["pos"]), _int32(batch["neg"]), v, denom)
     d = g_ci.shape[1]
-    with _deterministic(dev):
+    with deterministic(dev):
         g_in = torch.zeros_like(params["emb_in"]).index_add_(0, center, g_ci)
         g_out = (torch.zeros_like(params["emb_out"])
                  .index_add_(0, pos, g_po)

@@ -5,6 +5,8 @@ with no card and no explicit device they raise rather than fall back.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -22,3 +24,20 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            f"available")
     return device
+
+
+@contextlib.contextmanager
+def deterministic(device: torch.device):
+    """Deterministic algorithms on the card for the enclosed ops (scatter-
+    adds sort their indices instead of racing float atomics); the CPU's
+    scatters are deterministic already."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=warn)

@@ -1,18 +1,20 @@
-"""GQA self-attention for serving: prefill through the ``flash_attention``
-kernel, single-token decode against a KV cache — port of
-``repro.models.attention``.
+"""GQA self-attention — port of ``repro.models.attention``: training
+(causal, sliding-window or bidirectional, through the plain ``attend``
+under autograd), prefill through the ``flash_attention`` kernel, and
+single-token decode against a KV cache.
 
-Cache layout: k/v [B, S_max, KV, dh]. Sliding-window archs (mixtral) keep a
-ring buffer of ``min(max_len, window)`` slots: prefill writes the last
-``window`` positions at their slots ``pos % s_cache`` and decode writes
-position ``pos`` at slot ``pos % s_cache``, as the JAX package does. Where
-JAX returns updated copies, the port writes the caches in place and returns
-them. The JAX package's sharding hints (``actsharding``, the
-``optflags.SEQ_DECODE`` score layout) leave one device's arithmetic
-unchanged and have no counterpart here. ``attn_train``, ``cross_decode``
-and ``memory_kv`` belong to later slices, and ``_mask_bias`` with
-``attn_train``: prefill masks inside the kernel (its plain version through
-``kernels.flash_attention.visible``) and decode masks the cache's slots.
+Training attends in plain torch, as the JAX package does: its
+``attn_train`` calls the plain ``attend`` (no Pallas kernel, and no
+backward kernel in either package), so autograd of the same ops gives the
+backward. Cache layout: k/v [B, S_max, KV, dh]. Sliding-window archs
+(mixtral) keep a ring buffer of ``min(max_len, window)`` slots: prefill
+writes the last ``window`` positions at their slots ``pos % s_cache`` and
+decode writes position ``pos`` at slot ``pos % s_cache``, as the JAX
+package does. Where JAX returns updated copies, the port writes the caches
+in place and returns them. The JAX package's sharding hints
+(``actsharding``, the ``optflags.SEQ_DECODE`` score layout) leave one
+device's arithmetic unchanged and have no counterpart here. Cross-attention
+(``memory=``, ``cross_decode``, ``memory_kv``) belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -70,12 +72,50 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _mask_bias(sq: int, skv: int, causal: bool, window: int,
+               q_offset: int = 0, device=None) -> torch.Tensor:
+    """[sq, skv] float32 additive mask: 0 where query i may see key j,
+    ``NEG_INF`` elsewhere (causal: j <= i + q_offset; window: j > i +
+    q_offset - window)."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=device)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window:
+        ok &= kpos > qpos - window
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
 def _project(p: Dict, x: torch.Tensor, name: str) -> torch.Tensor:
     return torch.einsum("bsd,dhk->bshk", x, p[name].to(x.dtype))
 
 
 def _out(p: Dict, o: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+
+
+def attn_train(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+               positions: torch.Tensor, causal: bool = True,
+               window: Optional[int] = None,
+               memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence self-attention for training: RoPE on q and k, the
+    causal / sliding-window mask (``window`` overrides ``cfg.window``; 0
+    is none), GQA by repeating k/v, the plain ``attend``; differentiable
+    by autograd."""
+    if memory is not None:
+        raise NotImplementedError(
+            "cross-attention (memory=): ROADMAP Queue 1 item 11e (not "
+            "ported yet)")
+    _check_softcap(cfg)
+    q = apply_rope(_project(p, x, "wq"), positions, cfg.rope_theta)
+    k = apply_rope(_project(p, x, "wk"), positions, cfg.rope_theta)
+    v = _project(p, x, "wv")
+    win = cfg.window if window is None else window
+    bias = _mask_bias(x.shape[1], x.shape[1], causal, win, device=x.device)
+    o = attend(q, _expand_kv(k, cfg.q_per_kv), _expand_kv(v, cfg.q_per_kv),
+               bias)
+    return _out(p, o)
 
 
 # ---------------- decode with KV cache ----------------

@@ -4,9 +4,10 @@
 One frozen dataclass covers all 10 assigned families; the block layout is
 expressed as a *superblock pattern* (list of layer descriptors) repeated
 ``num_layers / len(pattern)`` times. The port runs the superblocks in a
-Python loop where the JAX package scans them; ``remat`` and
-``scan_layers`` are kept so configs compare field for field, and change
-nothing here.
+Python loop where the JAX package scans them: ``scan_layers`` is kept so
+configs compare field for field and changes nothing here; ``remat``
+recomputes each superblock's activations in training's backward
+(``torch.utils.checkpoint``), which changes no value.
 """
 from __future__ import annotations
 

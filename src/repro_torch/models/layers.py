@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import random as jr
+from repro_torch.device import deterministic
 from repro_torch.models.config import ModelConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -111,10 +112,33 @@ def init_embed(cfg: ModelConfig, key: torch.Tensor) -> Dict[str, torch.Tensor]:
     return p
 
 
+class _Rows(torch.autograd.Function):
+    """``table[ids]`` whose backward scatter-adds the rows' grads into a
+    dense table under deterministic algorithms on the card (the trainer's
+    scatters' rule: sorted indices, no racing float atomics)."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, ids: torch.Tensor):
+        ctx.save_for_backward(ids)
+        ctx.table_shape = table.shape
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (ids,) = ctx.saved_tensors
+        g = torch.zeros(ctx.table_shape, dtype=grad.dtype,
+                        device=grad.device)
+        with deterministic(grad.device):
+            g.index_add_(0, ids.reshape(-1),
+                         grad.reshape(-1, grad.shape[-1]))
+        return g, None
+
+
 def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of the table, cast to the compute type (gathered first, which
-    gives the values of JAX's cast-then-gather)."""
-    return p["tok"][tokens.long()].to(dtype_of(cfg))
+    gives the values of JAX's cast-then-gather; the table's grad is summed
+    in float32, where JAX scatters the compute type's)."""
+    return _Rows.apply(p["tok"], tokens.long()).to(dtype_of(cfg))
 
 
 def logits_out(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -122,3 +146,17 @@ def logits_out(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, p["final_norm"])
     w = p["tok"] if cfg.tie_embeddings else p["unembed"]
     return x.float() @ w.float().T
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean cross entropy. logits [..., V] float32, labels [...]
+    int; with ``mask`` the masked sum over ``max(sum(mask), 1)``."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum() / denom

@@ -1,19 +1,23 @@
-"""Stack assembler for serving — port of ``repro.models.transformer``.
+"""Stack assembler — port of ``repro.models.transformer``.
 
 A superblock is the repeating layer pattern from ``ModelConfig.superblock()``.
 Parameters and caches are stacked [NSB, ...] per pattern position, with the
 JAX package's key tree; a Python loop over superblocks takes the place of
-``lax.scan`` (``jax.checkpoint`` changes no value and is dropped). Prefill
-and decode write the stacked caches in place through per-superblock views.
-Only self-attention layers with dense FFNs are ported so far; the others
-raise ``NotImplementedError`` naming their ROADMAP item. The training
-stack (``stack_train``) belongs to a later slice.
+``lax.scan``. Training (``stack_train``) unbinds the stacked params once
+(one stack of grads in the backward) and, with ``cfg.remat``, wraps each
+superblock in ``torch.utils.checkpoint`` (non-reentrant): its activations
+are recomputed in the backward, as ``jax.checkpoint`` does, and no value
+changes. Prefill and decode write the stacked caches in place through
+per-superblock views. Only self-attention layers with dense FFNs are
+ported so far; mamba, MoE and cross-attention layers raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as jr
 from repro_torch.models import attention as attn
@@ -48,6 +52,17 @@ def _index(tree: Dict, j: int) -> Dict:
             for k, v in tree.items()}
 
 
+def _unbind(tree: Dict, n: int) -> List[Dict]:
+    """The n superblocks' trees of a stacked tree (``unbind`` views: their
+    grads are stacked once in the backward)."""
+    out: List[Dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unbind(v, n) if isinstance(v, dict) else v.unbind(0)
+        for j in range(n):
+            out[j][k] = parts[j]
+    return out
+
+
 # ---------------- init ----------------
 
 def init_layer(cfg: ModelConfig, spec: LayerSpec,
@@ -77,6 +92,39 @@ def _ffn(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor):
     if spec.ffn == "none":
         return x
     return x + mlp_apply(cfg, p["ffn"], rms_norm(x, p["post_norm"]))
+
+
+# ---------------- one superblock ----------------
+
+def superblock_train(cfg: ModelConfig, params_sb: Dict, x: torch.Tensor,
+                     positions: torch.Tensor,
+                     causal: bool = True) -> torch.Tensor:
+    for i, spec in enumerate(cfg.superblock()):
+        p = params_sb[f"l{i}"]
+        h = rms_norm(x, p["pre_norm"])
+        x = x + attn.attn_train(cfg, p["attn"], h, positions, causal=causal)
+        x = _ffn(cfg, spec, p, x)
+    return x
+
+
+def stack_train(cfg: ModelConfig, blocks: Dict, x: torch.Tensor,
+                positions: torch.Tensor,
+                memory: Optional[torch.Tensor] = None,
+                causal: bool = True) -> torch.Tensor:
+    """The training forward through every superblock; with ``cfg.remat``
+    each superblock's activations are recomputed in the backward."""
+    check_ported(cfg)
+    if memory is not None:
+        raise NotImplementedError(
+            "cross-attention memory: ROADMAP Queue 1 item 11e (not ported "
+            "yet)")
+    for params_sb in _unbind(blocks, cfg.num_superblocks):
+        if cfg.remat:
+            x = checkpoint(superblock_train, cfg, params_sb, x, positions,
+                           causal, use_reentrant=False)
+        else:
+            x = superblock_train(cfg, params_sb, x, positions, causal)
+    return x
 
 
 # ---------------- caches ----------------

@@ -8,8 +8,9 @@ state can be carried across from it and compared::
     updates, state = opt.update(grads, state, params)
     params = apply_updates(params, updates)
 
-Parameters, grads, updates and moments are dicts of tensors (the JAX
-package's pytrees of one level). Nothing is updated in place: every call
+Parameters, grads, updates and moments are dicts of tensors, nested
+freely (the JAX package's pytrees of dicts: one level for SGNS tables,
+the LM's params tree). Nothing is updated in place: every call
 returns new tensors, as JAX does, so a state handed in is never changed.
 The step count is a 0-d int32 tensor on the parameters' device, and
 scalar hyper-parameters stay Python floats, so a step makes no host-device
@@ -50,13 +51,25 @@ def _lr_at(lr: ScalarOrSchedule, count: torch.Tensor):
     return lr(count) if callable(lr) else float(np.float32(lr))
 
 
+def _first_leaf(tree: dict):
+    for v in tree.values():
+        leaf = _first_leaf(v) if isinstance(v, dict) else v
+        if leaf is not None:
+            return leaf
+    return None
+
+
 def _count(params: dict) -> torch.Tensor:
-    dev = next(iter(params.values())).device if params else None
+    leaf = _first_leaf(params)
+    dev = leaf.device if leaf is not None else None
     return torch.zeros((), dtype=torch.int32, device=dev)
 
 
 def _map(fn, *trees: dict) -> dict:
-    return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+    """``fn`` over the leaves of dicts of one structure (``jax.tree.map``)."""
+    return {k: _map(fn, *(t[k] for t in trees))
+            if isinstance(trees[0][k], dict) else fn(*(t[k] for t in trees))
+            for k in trees[0]}
 
 
 class SgdState(NamedTuple):
@@ -118,7 +131,7 @@ def adam(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
         updates = _map(upd, mu, nu)
         if weight_decay and params is not None:
             decay_mask = (mask(params) if mask is not None else
-                          {k: p.dim() >= 2 for k, p in params.items()})
+                          _map(lambda p: p.dim() >= 2, params))
             updates = _map(
                 lambda u, p, m: u - step_lr * weight_decay * p * float(m),
                 updates, params, decay_mask)
@@ -127,6 +140,11 @@ def adam(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
     key = ("adam", lr, b1, b2, eps, weight_decay) \
         if not callable(lr) and mask is None else None
     return Optimizer(init, update, key)
+
+
+def adamw(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.95,
+          eps: float = 1e-8, weight_decay: float = 0.1) -> Optimizer:
+    return adam(lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
 
 
 def adam_rows(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,

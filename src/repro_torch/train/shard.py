@@ -44,7 +44,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import random as jr
-from repro_torch.core.skipgram import _deterministic
+from repro_torch.device import deterministic
 from repro_torch.kernels.sgns import sgns_row_grads
 from repro_torch.optim.optimizers import AdamState
 from repro_torch.train.pairs import device_negatives
@@ -191,7 +191,7 @@ def train_epoch_sharded(params, opt_state, c, x, valid, perm2d, prob, alias,
         no = rows["emb_out"][inv_n].reshape(batch_size, negatives, -1)
         loss_sum, g_ci, g_po, g_no = sgns_row_grads(ci, po, no, v, backend)
         denom = torch.clamp(v.sum(), min=1.0)
-        with _deterministic(dev):
+        with deterministic(dev):
             grads = {
                 "emb_in": torch.zeros_like(rows["emb_in"]).index_add_(
                     0, inv_c, g_ci / denom),

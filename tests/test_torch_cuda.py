@@ -1,7 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version, and the fused walk backend, the fused streamed SGNS trainer and
-LM serving (prefill through ``flash_attention``) on the card against the
-CPU.
+version, and the fused walk backend, the fused streamed SGNS trainer, LM
+serving (prefill through ``flash_attention``) and LM training steps on
+the card against the CPU.
 
 They skip where no card is present. On a machine with a card (which has
 no JAX, so this file imports none and the repository's conftest, which
@@ -508,3 +508,45 @@ def test_serving_on_card_matches_cpu(cuda, arch, window):
     gap_cpu = float((cpu16 - outs["cpu"]).abs().max())
     gap_card = float((card16 - outs["card"]).abs().max())
     assert torch.isfinite(card16).all() and 0 < gap_card <= 2 * gap_cpu
+
+
+@pytest.mark.parametrize("arch,remat", [("yi-6b", False), ("yi-6b", True),
+                                        ("minitron-4b", True)])
+def test_lm_train_steps_on_card_match_cpu(cuda, arch, remat):
+    """float32 smoke config: three launcher steps (``loss_fn``'s grads by
+    autograd, clipping, AdamW) on the card and on the CPU from the same
+    params: losses and grad norms within 1e-5 relative, params and moments
+    after within 1e-4; the card's step is deterministic (the embedding's
+    scatter-add runs under deterministic algorithms): two runs of it from
+    the same state are ``torch.equal``."""
+    from repro_torch.launch.train import lm_train_step
+    from repro_torch.optim.optimizers import adamw
+    cfg = dataclasses.replace(smoke_config(arch), remat=remat)
+    params = M.init_params(cfg, jr.PRNGKey(0))
+    opt = adamw(3e-4)
+    runs = {}
+    for name, p in (("card", params), ("cpu", _cpu(params))):
+        dev = p["embed"]["tok"].device
+        state = opt.init(p)
+        rng = np.random.default_rng(1)
+        seen = []
+        for _ in range(3):
+            seqs = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 33))).to(
+                dev)
+            batch = {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
+            again = lm_train_step(cfg, opt, p, state, batch)
+            p, state, loss, gnorm = lm_train_step(cfg, opt, p, state, batch)
+            for a, b in zip(_flat(again[0]), _flat(p)):
+                assert torch.equal(a, b)
+            seen.append((float(loss), float(gnorm)))
+        runs[name] = (seen, p, state)
+    np.testing.assert_allclose(runs["card"][0], runs["cpu"][0], rtol=1e-5)
+    for a, b in zip(_flat(runs["card"][1]), _flat(runs["cpu"][1])):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+    for a, b in zip(_flat(runs["card"][2].nu), _flat(runs["cpu"][2].nu)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+def _flat(tree):
+    return [x for k in sorted(tree) for x in
+            (_flat(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of src/repro_torch/ and not
-chip_smoke.py imports JAX or the JAX package, and the entry points refuse to
-run without a card unless the caller names the CPU."""
+"""The port stands alone: no module of src/repro_torch/, not
+chip_smoke.py and no script of examples/torch/ imports JAX or the JAX
+package, and the entry points refuse to run without a card unless the
+caller names the CPU."""
 import ast
 import os
 import subprocess
@@ -20,7 +21,8 @@ from repro_torch.train.stream import StreamingSGNSTrainer, train_streamed
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples" / "torch").glob(
+        "*.py"))
 
 
 def _imported_roots(path: Path):

@@ -231,3 +231,48 @@ def launcher(argv: list) -> np.ndarray:
     """``repro_torch.launch.train.main`` inside the world."""
     from repro_torch.launch import train
     return train.main(argv)
+
+
+def compressed_psum(grads_by_rank: list, residuals_by_rank: list):
+    """``grad_utils.compressed_psum`` over the world, each rank with its own
+    grads and residuals (lists of numpy trees, indexed by rank)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim.grad_utils import compressed_psum as psum
+    r = dist.get_rank()
+
+    def tree(t):
+        return {k: tree(v) if isinstance(v, dict) else torch.from_numpy(v)
+                for k, v in t.items()}
+
+    def host(t):
+        return {k: host(v) if isinstance(v, dict) else v.numpy()
+                for k, v in t.items()}
+    g, res = psum(tree(grads_by_rank[r]), tree(residuals_by_rank[r]),
+                  group=dist.group.WORLD)
+    return host(g), host(res)
+
+
+def sharded_batches(batches: list):
+    """``data.pipeline.shard_batches`` at this rank of the world, on the
+    CPU: every batch's arrays as numpy."""
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import shard_batches
+    out = shard_batches(iter(batches), "cpu", rank=dist.get_rank(),
+                        world=dist.get_world_size())
+    return [{k: v.numpy() for k, v in b.items()} for b in out]
+
+
+def example(path: str, argv: list):
+    """Run an example script's ``main(argv)`` on this rank; returns (its
+    result, what it printed)."""
+    import contextlib
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location("example", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        result = mod.main(argv)
+    return result, printed.getvalue()
