@@ -2,8 +2,8 @@
 """Drive the PyTorch / CUDA port (walks, SGNS training, LM serving,
 embedding serving under graph churn, the training launcher on an on-disk
 edge list, the sharded walk backend and tables across a
-``torch.distributed`` world, LM training and the examples) on one NVIDIA
-GPU.
+``torch.distributed`` world, LM training, the MoE and Mamba2 layers and
+the examples) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -52,7 +52,7 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    vocabulary: tests/test_torch_train.py::
    test_loss_curve_at_path_c_widths_matches_jax), and a concat replay of
    round 0 into a fresh trainer must equal the streamed run's tables after
-   round 0 exactly; then ~200 steps of a fresh trainer on the fused
+   round 0 exactly; then ~50 steps of a fresh trainer on the fused
    backend, on the old composition (patched into ``core.skipgram``: its
    tables must equal the fused trainer's) and on the autograd backend give
    their steps per second; the table entry is timed device-only (a CUDA
@@ -68,7 +68,7 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    bytes the draws need (live lanes only, not the PAD lanes that pad each
    row to the widest) over 3.35 TB/s, or float32 operations over
    67 TFLOP/s, whichever is larger;
-5. profiles one more round of each walk path and ~200 steps of paths C
+5. profiles one more round of each walk path and ~50 steps of paths C
    and G1 with ``torch.profiler``, tracing the device's activity only:
    the window's wall seconds, the share of it the device was busy, and
    the kernels with the most device time;
@@ -128,7 +128,7 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    10x of a control's gap to the CPU (the CPU trainer with its row grads
    rounded once from float64: what rounding alone does under lazy
    row-Adam), and different from path C's dense tables; sharded and dense
-   steps/s in turns and a profile of ~200 steps. The CPU trainers run in
+   steps/s in turns and a profile of ~50 steps. The CPU trainers run in
    a worker process (``python3 chip_smoke.py --g1-cpu DIR``, which sees
    no card) beside paths G1 to G2, and are read at the end. G2:
    ``wec:k=16,deg=100,seed=0`` written with ``write_edgelist`` once per
@@ -171,23 +171,52 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    same params in float32 on the card and on the CPU, one ``loss_fn``
    and its grads' global norm at B=1, S=128 (relative gaps within 1e-4),
    then 5 launcher steps at ``smoke_config("yi-6b")`` on both (losses
-   and grad norms within 1e-4 relative). I2: ``run_lm`` for 15 steps at
+   and grad norms within 1e-4 relative). I2: ``run_lm`` for 20 steps at
    B=8, S=1,024 on path A's round-0 walks modulo the vocabulary
    (``walks_to_lm_tokens``), which checkpoints ``(params, opt_state)``
-   at step 15; a fresh ``run_lm`` on the same directory to 30 steps,
-   whose restored state must be ``torch.equal`` to the saved; the loss
-   finite, its last 5 steps' mean below its first 5's; ms/step and
-   tokens/s of the steady steps, the first run's peak memory, and a
-   profile of 3 more steps. None of the four kernels may launch;
-12. the examples — ``examples/torch/{quickstart,classify_nodes,
-   serve_embeddings,distributed_walks}.py`` on the card in subprocesses
-   started together (``distributed_walks.py`` at world 1); each must
-   exit 0.
+   at the end; the loss finite, its last 5 steps' mean below its first
+   5's; ms/step and tokens/s of the steady steps, peak memory, and a
+   profile of 3 more steps. None of the four kernels may launch (the
+   LM launcher's resume is held on the card in path J3, and on the CPU
+   in tests/test_torch_lm_train.py);
+12. path J — the MoE and Mamba2 layers, right after path I, on path A's
+   round-0 walks modulo the vocabulary. J1: mamba2-370m whole (48 layers
+   at published widths, bf16 compute, f32 params): ``prefill`` of B=4 x
+   S=4,096 (16 chunks of 256) and 32 greedy ``serve_step``s with every
+   kernel count set to 0 just before, none of the four kernels launched,
+   a second prefill ``torch.equal`` to the first, profiles of a prefill
+   and 8 decode steps, peak memory; in float32 on its first 2 layers the
+   logits of ``prefill`` of 255 tokens and one ``serve_step`` within 2e-3
+   of ``prefill`` of 256's (tests/test_models.py's chunked == stepwise
+   tolerance), and card vs CPU at B=1, S=512 within 1e-3 (8 greedy tokens
+   equal). J2: phi3.5-moe-42b-a6.6b at published widths cut from 32 to 2
+   layers (16 experts, top-2, capacity factor 1.25): the same serving run
+   (capacity 2,560 at prefill, 1 at decode), ``flash_attention`` exactly
+   twice at prefill, both on the tensor-core route, and never at decode,
+   the share of (token, expert) assignments dropped per layer at prefill
+   and at decode, two prefills ``torch.equal`` (the deterministic
+   scatter-add), the kernel at layer 0's bf16 q, k, v (B=4, S=4,096,
+   32/8 heads) within path E's tolerance of its plain version; then
+   layer 0 in float32 on the card and on the CPU from
+   params made once on the card (B=1, S=128): logits within 1e-3, and
+   each token's experts and each expert's kept tokens equal but where a
+   token's k-th and next router probabilities lie within 1e-5 (their
+   count printed). J3: ``launch.train.run_lm`` with ``--task lm --arch
+   mamba2-370m`` at full depth at the launcher's batch (B=8, S=128): 3
+   steps, then a fresh run resumed from their checkpoint to 6 (the
+   restored params and AdamW state ``torch.equal`` to the saved); the
+   losses and grad norms finite, ms/step and tokens/s;
+13. the examples — ``examples/torch/{quickstart,classify_nodes,
+   serve_embeddings,distributed_walks,train_lm_on_walks,
+   serve_decode}.py`` on the card in subprocesses started together
+   (``distributed_walks.py`` at world 1), and ``train_lm_on_walks.py
+   --arch jamba-v0.1-52b`` (attention, Mamba and MoE layers at its smoke
+   size); each must exit 0.
 
 It prints the card's name and power limit, the build seconds, the
 registers and spills of the walk kernels and the tensor-core kernel,
 walker-steps per second for each walk phase, prefill tokens/s and decode
-ms/token, path F's latency quantiles, QPS, hit rate, occupancy, refresh
+ms/token (paths E and J), path J's dropped assignments, path F's latency quantiles, QPS, hit rate, occupancy, refresh
 host ms and device-busy share, LM training's ms/step, tokens/s, peak
 memory and busy share, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -242,7 +271,7 @@ WALK_EDGE_WIDTHS = (1, 16, 17, 147, 256, 257, 300, 512, 513, 793, 914,
 WALK_EDGE_STEPS = 37            # L - 1, not a multiple of 16 or 32
 C_EVERY = 128                   # path C walks every 128th vertex
 C_ROUNDS = 2
-C_PROFILE_WALKERS = 137         # ~200 optimizer steps at length 80
+C_PROFILE_WALKERS = 35          # ~50 optimizer steps at length 80
 C_FALL = 0.9                    # each round's loss ends at most 0.9 x start
 D_SPEC = "sbm:n=400,c=4,pin=0.06,pout=0.004,seed=1"
 D_F1_GAP = 0.05
@@ -266,17 +295,33 @@ E_LONG = 32768                  # prefill_32k's length, a second reading
 E_CPU_SEQ, E_CPU_GEN, E_CPU_TOL = 512, 8, 1e-3
 I_LAYERS = 2                    # path I: yi-6b's widths, depth 32 -> 2
 I_BATCH, I_SEQ = 8, 1024
-I_STEPS, I_SAVE = 30, 15        # the first run stops (and saves) at 15
+I_STEPS = 20
 I_LR = 3e-4                     # the launcher's default
 I_CPU_SEQ = 128                 # I1: B=1 at full width, card vs CPU
 I_SMOKE_STEPS = 5               # I1: AdamW steps at the smoke config
 I_TOL = 1e-4                    # I1: relative, losses and grad norms
 I_PROFILE_STEPS = 3
 I_WORK = ROOT / "build" / "chip_smoke_i"     # path I's checkpoints
-EXAMPLES = ("quickstart", "classify_nodes", "serve_embeddings",
-            "distributed_walks")
+J_MAMBA, J_MOE = "mamba2-370m", "phi3.5-moe-42b-a6.6b"
+J_MOE_LAYERS = 2                # phi3.5-moe at published widths, 32 -> 2
+J_BATCH, J_SEQ, J_GEN = 4, 4096, 32
+J_STEP_LAYERS, J_STEP_TOL = 2, 2e-3   # chunked == stepwise, f32, 2 layers
+J_CPU_SEQ = 512                 # J1: card vs CPU at B=1, 2 layers, f32
+J2_CPU_SEQ = 128                # J2: card vs CPU at B=1, 1 layer, f32
+J_TIE = 1e-5                    # router probabilities nearer than this tie
+J_PROFILE_STEPS = 8
+J3_STEPS = 6                    # --task lm --arch mamba2-370m, full depth
+J3_SAVE = 3                     # J3's first run checkpoints here
+J_WORK = ROOT / "build" / "chip_smoke_j"     # J3's checkpoint
+# (script, arguments; None: a checkpoint dir of the phase's own), each on
+# the card in its own process
+EXAMPLES = (("quickstart", []), ("classify_nodes", []),
+            ("serve_embeddings", []), ("distributed_walks", None),
+            ("train_lm_on_walks", []),
+            ("train_lm_on_walks", ["--arch", "jamba-v0.1-52b"]),
+            ("serve_decode", []))
 EXAMPLES_WAIT_S = 300
-F_REQUESTS = 5_000              # serve_graph --full replays 50,000
+F_REQUESTS = 4_000              # serve_graph --full replays 50,000
 F_WINDOW, F_K = 10, 10
 F_PROFILED = 2_000              # requests of path F traced for busy share
 F_SAMPLE = 4_096                # gate (a)'s walkers beside the buckets
@@ -1163,7 +1208,7 @@ def path_g1(np, torch, walks, dense) -> dict:
         f"{rates['sharded']:.4g} steps/s ({each['sharded']}), dense "
         f"{rates['dense']:.4g} steps/s ({each['dense']})")
     profile_round(torch, lambda: trainer.consume(
-        walks[0][:C_PROFILE_WALKERS]), "G1 sharded SGNS", "~200 steps")
+        walks[0][:C_PROFILE_WALKERS]), "G1 sharded SGNS", "~50 steps")
     return {"launches": launches, "steps": st.steps, "rates": rates,
             "worker": worker, "card": card, "kw": kw}
 
@@ -2101,20 +2146,8 @@ def path_e(np, torch, walks, one, dev="cuda"):
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     prompt = torch.from_numpy(walks_to_lm_tokens(walks % cfg.vocab,
                                                  E_CPU_SEQ)[:1])
-    card = serve(torch, M, cfg32, params, prompt.to(dev), E_CPU_GEN)
-    host_params = _to_cpu(params)
+    card_vs_cpu(torch, M, cfg32, params, prompt, "E")
     del params
-    torch.cuda.empty_cache()
-    host = serve(torch, M, cfg32, host_params, prompt, E_CPU_GEN)
-    gap = float((card[0].cpu() - host[0]).abs().max())
-    log(f"E: float32 B=1 S={E_CPU_SEQ}, {E_CPU_GEN} greedy tokens: card vs "
-        f"CPU logits max |diff| {gap:.3g} (prefill {card[2]:.3f} s card, "
-        f"{host[2]:.3f} s CPU); tokens {card[1][0].tolist()} on the card, "
-        f"{host[1][0].tolist()} on the CPU")
-    if not torch.allclose(card[0].cpu(), host[0], atol=E_CPU_TOL,
-                          rtol=E_CPU_TOL) or \
-            not torch.equal(card[1].cpu(), host[1]):
-        raise AssertionError("E: card and CPU disagree in float32")
     r["launches_tc"], r["launches_simt"] = by_route
     return launches, max(err, err_long), r
 
@@ -2221,10 +2254,9 @@ def kernel_counts(K, S, FA) -> tuple:
 def path_i(np, torch, walks) -> dict:
     """Path I: LM training at yi-6b's full width cut to ``I_LAYERS``
     layers, through the launcher's ``run_lm`` on path A's walks: I1 card vs
-    CPU; I2 ``I_SAVE`` steps, then a fresh ``run_lm`` resumed from its
-    checkpoint to ``I_STEPS`` (the restored state ``torch.equal`` to the
-    saved), the loss falling, and a profiled window of
-    ``I_PROFILE_STEPS`` more steps. Runs none of the four kernels."""
+    CPU; I2 ``I_STEPS`` steps (checkpointed at the end), the loss
+    falling, and a profiled window of ``I_PROFILE_STEPS`` more steps.
+    Runs none of the four kernels."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.data.corpus import walks_to_lm_tokens
@@ -2249,53 +2281,33 @@ def path_i(np, torch, walks) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        first = LT.run_lm(lm_args(torch, I_WORK, I_SAVE), cfg, tokens)
+        run = LT.run_lm(lm_args(torch, I_WORK, I_STEPS), cfg, tokens)
         torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
+        run_s = time.perf_counter() - t0
         r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        t0 = time.perf_counter()
-        second = LT.run_lm(lm_args(torch, I_WORK, I_STEPS), cfg, tokens)
-        torch.cuda.synchronize()
-        second_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(I_WORK, ignore_errors=True)
-    if second["start_step"] != I_SAVE or second["restored"] is None:
-        raise AssertionError(f"I2: the second run started at step "
-                             f"{second['start_step']}, want {I_SAVE}")
-    params, state = second["restored"]
-    saved = first["opt_state"]
-    pairs = list(zip(_leaves(first["params"]) + _leaves(saved.mu)
-                     + _leaves(saved.nu) + [saved.count],
-                     _leaves(params) + _leaves(state.mu) + _leaves(state.nu)
-                     + [state.count]))
-    if not all(torch.equal(a, b) for a, b in pairs):
-        raise AssertionError("I2: the restored (params, opt_state) differ "
-                             "from the saved")
-    del first["params"], first["opt_state"], second["restored"], params, \
-        state, saved, pairs
-    losses = first["losses"] + second["losses"]
+    losses = run["losses"]
     head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     if len(losses) != I_STEPS or not np.isfinite(losses).all() or \
             not tail < head:
         raise AssertionError(f"I2: losses {losses}")
-    # steady steps: each run's steps after its first (every step prints,
-    # so each ends after the device finished it)
-    dts = np.concatenate([np.diff(run["step_end"])
-                          for run in (first, second)])
+    # steady steps: the steps after the first (every step prints, so each
+    # ends after the device finished it)
+    dts = np.diff(run["step_end"])
     r["ms_step"] = float(np.median(dts)) * 1e3
     r["ms_step_mean"] = float(np.mean(dts)) * 1e3
     r["tokens_s"] = I_BATCH * I_SEQ / (r["ms_step"] / 1e3)
     log(f"I2: {I_STEPS} steps B={I_BATCH} S={I_SEQ} on path A's walks "
         f"({tokens.shape[0]} sequences): loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}, mean of the first 5 {head:.4f}, of the last 5 "
-        f"{tail:.4f}; restored state at step {I_SAVE} torch.equal the "
-        f"saved; ms/step median {r['ms_step']:.2f} (mean "
+        f"{tail:.4f}; ms/step median {r['ms_step']:.2f} (mean "
         f"{r['ms_step_mean']:.2f}, {len(dts)} steady steps) = "
-        f"{r['tokens_s']:.6g} tokens/s; peak memory {r['peak_gb']:.2f} GB "
-        f"(first run); runs {first_s:.2f} s and {second_s:.2f} s host "
-        f"(init, checkpoint writes and the resume included)")
+        f"{r['tokens_s']:.6g} tokens/s; peak memory {r['peak_gb']:.2f} GB; "
+        f"run {run_s:.2f} s host (init and the 10.4 GB checkpoint "
+        f"included)")
 
-    final = (second["params"], second["opt_state"])
+    final = (run["params"], run["opt_state"])
     opt = adamw(I_LR)
     rng = np.random.default_rng(1)
 
@@ -2313,31 +2325,422 @@ def path_i(np, torch, walks) -> dict:
     if after != before:
         raise AssertionError(f"I: LM training launched kernels: {before} "
                              f"-> {after}")
-    del final, second
+    del final, run
+    torch.cuda.empty_cache()
+    return r
+
+
+def zero_counts(K, S, FA) -> None:
+    """Every kernel's launch counts to 0, just before a main path runs."""
+    K.node2vec_step.launches = 0
+    K.node2vec_walk.launches = 0
+    S.sgns_fused.launches = 0
+    FA.flash_attention.launches = 0
+    FA.flash_attention.launches_tc = 0
+    FA.flash_attention.launches_simt = 0
+
+
+def first_layers(params, n: int):
+    """The params of a model cut to its first ``n`` superblocks (views)."""
+    def cut(tree):
+        return {k: cut(v) if isinstance(v, dict) else v[:n]
+                for k, v in tree.items()}
+    return {"embed": params["embed"], "blocks": cut(params["blocks"])}
+
+
+def card_vs_cpu(torch, M, cfg, params, prompt, label: str) -> float:
+    """``serve`` of ``prompt`` for ``E_CPU_GEN`` greedy tokens with the same
+    float32 params on the card and on the CPU: the logits within
+    ``E_CPU_TOL`` (atol and rtol), the tokens equal. Returns the largest
+    |diff| of the logits."""
+    card = serve(torch, M, cfg, params, prompt.to(DEV), E_CPU_GEN)
+    host = serve(torch, M, cfg, _to_cpu(params), prompt, E_CPU_GEN)
+    gap = float((card[0].cpu() - host[0]).abs().max())
+    log(f"{label}: float32 B={prompt.shape[0]} S={prompt.shape[1]}, "
+        f"{E_CPU_GEN} greedy tokens: card vs CPU logits max |diff| "
+        f"{gap:.3g} (tolerance {E_CPU_TOL} abs + rel; prefill "
+        f"{card[2]:.3f} s card, {host[2]:.3f} s CPU); tokens "
+        f"{card[1][0].tolist()} on the card, {host[1][0].tolist()} on the "
+        f"CPU")
+    if not torch.allclose(card[0].cpu(), host[0], atol=E_CPU_TOL,
+                          rtol=E_CPU_TOL) or \
+            not torch.equal(card[1].cpu(), host[1]):
+        raise AssertionError(f"{label}: card and CPU disagree in float32")
+    return gap
+
+
+def j_serve(np, torch, K, S, FA, M, cfg, params, tokens, label: str):
+    """J's main path for one arch: every count set to 0, then ``prefill``
+    of ``tokens`` and ``J_GEN`` greedy ``serve_step``s; the counts read
+    just after. Then a second (warm) prefill, whose logits must be
+    ``torch.equal`` to the first's. Logs prefill tokens/s (cold and
+    warm), decode ms/token and peak memory; returns ``serve``'s tuple,
+    the counts (step, walk, sgns) and the warm prefill's seconds."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(K, S, FA)
+    out = serve(torch, M, cfg, params, tokens, J_GEN + 1)
+    others = kernel_counts(K, S, FA)[:3]
+    logits, toks, t_pre, t_dec = out[:4]
+    if not bool(torch.isfinite(logits).all()) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab:
+        raise AssertionError(f"{label}: non-finite logits or tokens out "
+                             f"of range")
+    b, s = tokens.shape
+    log(f"{label}: prefill B={b} S={s}: {t_pre:.4f} s = "
+        f"{b * s / t_pre:.6g} tokens/s; decode {J_GEN} steps: "
+        f"{t_dec / J_GEN * 1e3:.4f} ms/token; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"(step, walk, sgns) {others}, flash (total, tensor-core, SIMT) "
+        f"{out[4]} at prefill, {out[5]} at decode; tokens "
+        f"{toks[0, :8].tolist()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again, _ = M.prefill(cfg, params, {"tokens": tokens},
+                         max_len=s + J_GEN + 1)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    if not torch.equal(again, logits[0]):
+        raise AssertionError(f"{label}: two prefills differ")
+    log(f"{label}: a second (warm) prefill {warm:.4f} s = "
+        f"{b * s / warm:.6g} tokens/s, its logits torch.equal the first's")
+    return out, others, warm
+
+
+def path_j1(np, torch, K, S, FA, walks) -> dict:
+    """J1: mamba2-370m whole (48 layers at published widths): prefill B=4 x
+    S=4,096 and 32 greedy steps, none of the four kernels launched;
+    profiles; chunked == stepwise and card vs CPU in float32 on its first
+    2 layers."""
+    import dataclasses
+    from repro_torch import random as jr
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import walks_to_lm_tokens
+    from repro_torch.models import model as M
+    cfg = get_config(J_MAMBA)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, jr.PRNGKey(0), DEV)
+    torch.cuda.synchronize()
+    log(f"J1: {cfg.name} d_model={cfg.d_model} d_inner={cfg.d_inner} "
+        f"heads={cfg.ssm_heads} x {cfg.ssm_headdim} state={cfg.ssm_state} "
+        f"vocab={cfg.vocab} layers={cfg.num_layers} "
+        f"({cfg.param_count():,} params, dtype={cfg.dtype}) initialised on "
+        f"the card in {time.perf_counter() - t0:.2f} s host")
+    tokens = torch.from_numpy(walks_to_lm_tokens(
+        walks % cfg.vocab, J_SEQ)[:J_BATCH]).to(DEV)
+    out, others, warm = j_serve(np, torch, K, S, FA, M, cfg, params,
+                                tokens, "J1")
+    if others != (0, 0, 0) or out[4] != (0, 0, 0) or out[5] != (0, 0, 0):
+        raise AssertionError(f"J1: a kernel launched: {others}, flash "
+                             f"{out[4]}, {out[5]}")
+    r = {"prefill_tokens_s": J_BATCH * J_SEQ / out[2],
+         "warm_tokens_s": J_BATCH * J_SEQ / warm,
+         "decode_ms": out[3] / J_GEN * 1e3,
+         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    toks = out[1]
+    del out
+    wall, busy, events = profiled(torch, lambda: M.prefill(
+        cfg, params, {"tokens": tokens}, max_len=J_SEQ + J_GEN + 1))
+    log_profile("J1 prefill", "prefill", wall, busy, events)
+    r["prefill_busy"] = busy / wall
+    _, caches = M.prefill(cfg, params, {"tokens": tokens},
+                          max_len=J_SEQ + J_GEN + 1)
+
+    steps = min(J_PROFILE_STEPS, J_GEN)
+
+    def decode():
+        tok = toks[:, 0]
+        for i in range(steps):
+            tok = torch.argmax(M.serve_step(cfg, params, tok, J_SEQ + i,
+                                            caches)[0], -1)
+    wall, busy, events = profiled(torch, decode)
+    log_profile("J1 decode", f"{steps} steps", wall, busy, events)
+    r["decode_busy"] = busy / wall
+    del caches
+
+    # chunked == stepwise and card vs CPU: float32, the first 2 layers
+    cfg32 = dataclasses.replace(cfg, num_layers=J_STEP_LAYERS,
+                                dtype="float32")
+    p32 = first_layers(params, J_STEP_LAYERS)
+    prompt = tokens[:, :256]
+    full, _ = M.prefill(cfg32, p32, {"tokens": prompt}, max_len=257)
+    part, caches = M.prefill(cfg32, p32, {"tokens": prompt[:, :255]},
+                             max_len=257)
+    step, _ = M.serve_step(cfg32, p32, prompt[:, 255], 255, caches)
+    r["step_gap"] = float((step - full).abs().max())
+    log(f"J1: float32, {J_STEP_LAYERS} layers, B={J_BATCH}: prefill(255) + "
+        f"serve_step vs prefill(256) logits max |diff| {r['step_gap']:.3g} "
+        f"(tolerance {J_STEP_TOL} abs + rel)")
+    if not torch.allclose(step, full, atol=J_STEP_TOL, rtol=J_STEP_TOL):
+        raise AssertionError("J1: chunked and stepwise disagree")
+    cpu_prompt = torch.from_numpy(walks_to_lm_tokens(
+        walks % cfg.vocab, J_CPU_SEQ)[:1])
+    r["cpu_gap"] = card_vs_cpu(torch, M, cfg32, p32, cpu_prompt, "J1")
+    del params, p32, caches
+    torch.cuda.empty_cache()
+    return r
+
+
+def route_recorder(torch, MOE, gaps: bool = False):
+    """Wrap ``MOE.route`` to keep each call's routing: (the kept (token,
+    expert) pairs, the assigned ones, the ``Routing``, the group's tokens,
+    and with ``gaps`` each token's gap between its k-th and (k+1)-th
+    router probabilities, computed as ``route`` does). Returns the list it
+    appends to and a function that puts the original back."""
+    orig, seen = MOE.route, []
+
+    def recorded(cfg, p, xg):
+        r = orig(cfg, p, xg)
+        gap = None
+        if gaps:
+            logits = torch.einsum("gtd,de->gte", xg,
+                                  p["router"].to(xg.dtype))
+            probs = torch.sort(torch.softmax(logits.float(), -1), -1,
+                               descending=True).values
+            k = cfg.moe_top_k
+            gap = (probs[..., k - 1] - probs[..., k]).cpu()
+        seen.append((r.sel_valid.sum(), r.top_e.numel(), r, xg.shape[1],
+                     gap))
+        return r
+    MOE.route = recorded
+
+    def done():
+        MOE.route = orig
+    return seen, done
+
+
+def drop_shares(seen, layers: int):
+    """Per layer, the share of (token, expert) assignments dropped over
+    the calls recorded (``layers`` calls per forward)."""
+    kept = [0] * layers
+    total = [0] * layers
+    for i, (k, n, _, _, _) in enumerate(seen):
+        kept[i % layers] += int(k)
+        total[i % layers] += n
+    return [1 - k / n for k, n in zip(kept, total)]
+
+
+def path_j2(np, torch, K, S, FA, walks) -> dict:
+    """J2: phi3.5-moe-42b-a6.6b at published widths cut to 2 layers:
+    prefill B=4 x S=4,096 (capacity 2,560) and 32 greedy steps (capacity
+    1), ``flash_attention`` twice at prefill on the tensor-core route and
+    never at decode, drop shares per layer, two prefills ``torch.equal``;
+    the kernel held against its plain version at layer 0's bf16 inputs
+    (B=4, S=4,096, 32/8 heads: GQA group 4); then card vs CPU in float32
+    on layer 0 (B=1, S=128): logits within 1e-3, routing equal but for
+    near-ties."""
+    import dataclasses
+    from repro_torch import random as jr
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import walks_to_lm_tokens
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.attention import prefill_qkv
+    from repro_torch.models.layers import embed_tokens, rms_norm
+    cfg = dataclasses.replace(get_config(J_MOE), num_layers=J_MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, jr.PRNGKey(0), DEV)
+    torch.cuda.synchronize()
+    log(f"J2: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} head_dim={cfg.head_dim} experts="
+        f"{cfg.moe_experts} top-{cfg.moe_top_k} d_ff={cfg.d_ff} capacity "
+        f"factor {cfg.capacity_factor} vocab={cfg.vocab} layers="
+        f"{cfg.num_layers} ({cfg.param_count():,} params, dtype="
+        f"{cfg.dtype}) initialised on the card in "
+        f"{time.perf_counter() - t0:.2f} s host; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    tokens = torch.from_numpy(walks_to_lm_tokens(
+        walks % cfg.vocab, J_SEQ)[:J_BATCH]).to(DEV)
+    seen, done = route_recorder(torch, MOE)
+    try:
+        out, others, warm = j_serve(np, torch, K, S, FA, M, cfg, params,
+                                    tokens, "J2")
+    finally:
+        done()
+    n = cfg.num_layers
+    if others != (0, 0, 0) or out[4] != (n, n, 0) or out[5] != (0, 0, 0):
+        raise AssertionError(f"J2: launches (step, walk, sgns) {others}, "
+                             f"flash {out[4]} at prefill and {out[5]} at "
+                             f"decode; want (0, 0, 0), {(n, n, 0)} and "
+                             f"(0, 0, 0)")
+    caps = sorted({MOE.capacity(cfg, tg) for _, _, _, tg, _ in seen})
+    r = {"prefill_tokens_s": J_BATCH * J_SEQ / out[2],
+         "warm_tokens_s": J_BATCH * J_SEQ / warm,
+         "decode_ms": out[3] / J_GEN * 1e3,
+         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "launches": out[4][0], "launches_tc": out[4][1],
+         "drop_prefill": drop_shares(seen[:n], n),
+         "drop_decode": drop_shares(seen[n:n * (J_GEN + 1)], n)}
+    log(f"J2: assignments dropped per layer at prefill (capacity "
+        f"{caps[-1]}) {[round(x, 6) for x in r['drop_prefill']]}, over the "
+        f"{J_GEN} decode steps (capacity {caps[0]}) "
+        f"{[round(x, 6) for x in r['drop_decode']]}")
+    toks = out[1]
+    del out, seen
+    wall, busy, events = profiled(torch, lambda: M.prefill(
+        cfg, params, {"tokens": tokens}, max_len=J_SEQ + J_GEN + 1))
+    log_profile("J2 prefill", "prefill", wall, busy, events)
+    r["prefill_busy"] = busy / wall
+    _, caches = M.prefill(cfg, params, {"tokens": tokens},
+                          max_len=J_SEQ + J_GEN + 1)
+
+    steps = min(J_PROFILE_STEPS, J_GEN)
+
+    def decode():
+        tok = toks[:, 0]
+        for i in range(steps):
+            tok = torch.argmax(M.serve_step(cfg, params, tok, J_SEQ + i,
+                                            caches)[0], -1)
+    wall, busy, events = profiled(torch, decode)
+    log_profile("J2 decode", f"{steps} steps", wall, busy, events)
+    r["decode_busy"] = busy / wall
+    del caches
+
+    # the kernel at layer 0's inputs, the shapes J2's prefill gives it
+    blk = {k: v[0] for k, v in params["blocks"]["l0"]["attn"].items()}
+    h = rms_norm(embed_tokens(cfg, params["embed"], tokens),
+                 params["blocks"]["l0"]["pre_norm"][0])
+    q, k, v = prefill_qkv(cfg, blk, h, torch.arange(J_SEQ, device=DEV))
+    del h
+    tc = FA.flash_attention.launches_tc
+    r["flash_err"] = flash_compare(torch, FA, q, k, v, cfg.window, True,
+                                   "J2 layer 0", E_FLASH_TOL["bfloat16"])
+    if FA.flash_attention.launches_tc - tc != 2:
+        raise AssertionError("J2: the layer-0 comparison did not take the "
+                             "tensor-core route")
+    log(f"J2: flash_attention at layer 0's inputs (q {tuple(q.shape)}, "
+        f"k/v {tuple(k.shape)}, {q.dtype}, tensor-core) vs its plain "
+        f"version: max |diff| {r['flash_err']:.3g} (atol, rtol "
+        f"{E_FLASH_TOL['bfloat16']})")
+    del q, k, v, blk
+
+    # card vs CPU: layer 0 in float32, the params made once on the card
+    cfg32 = dataclasses.replace(cfg, num_layers=1, dtype="float32")
+    p32 = first_layers(params, 1)
+    del params
+    torch.cuda.empty_cache()
+    prompt = torch.from_numpy(walks_to_lm_tokens(
+        walks % cfg.vocab, J2_CPU_SEQ)[:1])
+    seen, done = route_recorder(torch, MOE, gaps=True)
+    try:
+        r["cpu_gap"] = card_vs_cpu(torch, M, cfg32, p32, prompt, "J2")
+    finally:
+        done()
+    # the prefills' routing: the card's first call, the CPU's after the
+    # card's E_CPU_GEN calls (a prefill and E_CPU_GEN - 1 steps)
+    (_, _, rc, _, gap_c), (_, _, rh, _, gap_h) = seen[0], seen[E_CPU_GEN]
+    near = (torch.minimum(gap_c, gap_h) < J_TIE)[0]
+    differ = (rc.top_e.cpu() != rh.top_e.cpu()).any(-1)[0]
+
+    def kept(rt):
+        return {(e, int(t)) for e in range(cfg.moe_experts)
+                for t, ok in zip(rt.sel_idx[0, e].tolist(),
+                                 rt.sel_valid[0, e].tolist()) if ok}
+    odd = kept(rc) ^ kept(rh)
+    r["near_ties"] = int(near.sum())
+    log(f"J2: layer 0 float32 B=1 S={J2_CPU_SEQ} (capacity "
+        f"{rc.sel_idx.shape[-1]}): tokens routed to other experts on the "
+        f"card than on the CPU {int(differ.sum())}, kept (token, expert) "
+        f"pairs that differ {len(odd)}; near-ties (a token's k-th and next "
+        f"router probabilities within {J_TIE}) {r['near_ties']}")
+    if (differ & ~near).any() or any(not near[t] for _, t in odd):
+        raise AssertionError("J2: card and CPU route differently outside "
+                             "near-ties")
+    del p32, seen, rc, rh
+    torch.cuda.empty_cache()
+    return r
+
+
+def path_j3(np, torch, walks) -> dict:
+    """J3: ``--task lm --arch mamba2-370m`` through the launcher's
+    ``run_lm`` at full depth and the launcher's batch (B=8, S=128) on path
+    A's walks: ``J3_SAVE`` steps, then a fresh ``run_lm`` resumed from its
+    checkpoint to ``J3_STEPS`` (the restored params and AdamW state
+    ``torch.equal`` to the saved); the losses and grad norms finite;
+    ms/step and tokens/s."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import walks_to_lm_tokens
+    from repro_torch.launch import train as LT
+
+    def args_to(steps: int):
+        args = LT.parser().parse_args([
+            "--task", "lm", "--arch", J_MAMBA, "--steps", str(steps),
+            "--log-every", "1", "--ckpt-dir", str(J_WORK)])
+        args.device = torch.device(DEV)
+        return args
+    args = args_to(J3_STEPS)
+    tokens = walks_to_lm_tokens(walks % get_config(J_MAMBA).vocab,
+                                args.seq + 1)
+    shutil.rmtree(J_WORK, ignore_errors=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = LT.run_lm(args_to(J3_SAVE), None, tokens)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        second = LT.run_lm(args, None, tokens)
+        second_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(J_WORK, ignore_errors=True)
+    if second["start_step"] != J3_SAVE or second["restored"] is None:
+        raise AssertionError(f"J3: the second run started at step "
+                             f"{second['start_step']}, want {J3_SAVE}")
+    params, state = second["restored"]
+    saved = first["opt_state"]
+    pairs = list(zip(_leaves(first["params"]) + _leaves(saved.mu)
+                     + _leaves(saved.nu) + [saved.count],
+                     _leaves(params) + _leaves(state.mu) + _leaves(state.nu)
+                     + [state.count]))
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError("J3: the restored (params, opt_state) differ "
+                             "from the saved")
+    del params, state, saved, pairs
+    losses = first["losses"] + second["losses"]
+    gnorms = list(first["gnorms"]) + list(second["gnorms"])
+    if len(losses) != J3_STEPS or not np.isfinite(losses).all() or \
+            not np.isfinite(gnorms).all():
+        raise AssertionError(f"J3: losses {losses}, grad norms {gnorms}")
+    # steady steps: each run's steps after its first
+    dts = np.concatenate([np.diff(run["step_end"])
+                          for run in (first, second)])
+    r = {"ms_step": float(np.median(dts)) * 1e3}
+    r["tokens_s"] = args.batch * args.seq / (r["ms_step"] / 1e3)
+    log(f"J3: --task lm --arch {J_MAMBA} "
+        f"({get_config(J_MAMBA).num_layers} layers) B={args.batch} "
+        f"S={args.seq}, {J3_STEPS} steps: losses {losses}; restored state "
+        f"at step {J3_SAVE} torch.equal the saved; ms/step median "
+        f"{r['ms_step']:.2f} of {len(dts)} steady steps = "
+        f"{r['tokens_s']:.6g} tokens/s; runs {first_s:.2f} s and "
+        f"{second_s:.2f} s host (init, the 5 GB checkpoint writes and the "
+        f"resume included)")
+    del first, second
     torch.cuda.empty_cache()
     return r
 
 
 def run_examples(torch) -> None:
-    """The four ``examples/torch/`` scripts on the card, in subprocesses
-    started together (``distributed_walks.py`` at world 1); any non-zero
-    exit fails the run. Their output is printed as they left it."""
+    """The six ``examples/torch/`` scripts on the card (and
+    ``train_lm_on_walks.py`` once more with jamba, a hybrid of attention,
+    Mamba and MoE layers), in subprocesses started together
+    (``distributed_walks.py`` at world 1); any non-zero exit fails the
+    run. Their output is printed as they left it."""
     work = ROOT / "build" / "chip_smoke_examples"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
     procs = {}
     t0 = time.perf_counter()
-    for name in EXAMPLES:
+    for i, (script, args) in enumerate(EXAMPLES):
         argv = [sys.executable, str(ROOT / "examples" / "torch" /
-                                    f"{name}.py")]
-        if name == "distributed_walks":
-            argv += ["--ckpt-dir", str(work / "walks")]
-        out = open(work / f"{name}.log", "w+")
+                                    f"{script}.py")]
+        argv += ["--ckpt-dir", str(work / "walks")] if args is None \
+            else args
+        out = open(work / f"{i}_{script}.log", "w+")
         proc = subprocess.Popen(argv, stdout=out, stderr=subprocess.STDOUT,
                                 cwd=ROOT, env=env)
         CHILDREN.append(proc)
-        procs[name] = (proc, out)
+        procs[" ".join([f"examples/torch/{script}.py"] + (args or []))] = \
+            (proc, out)
     failed = []
     for name, (proc, out) in procs.items():
         try:
@@ -2349,7 +2752,7 @@ def run_examples(torch) -> None:
         out.seek(0)
         text = out.read()
         out.close()
-        log(f"examples/torch/{name}.py: exit {rc}, "
+        log(f"{name}: exit {rc}, "
             f"{time.perf_counter() - t0:.1f} s since the phase began")
         for line in text.strip().splitlines()[-12:]:
             log(f"  | {line}")
@@ -2867,7 +3270,7 @@ def main(argv) -> int:
                    "bandwidth reading")
     sgns_err = max(sgns_err, sg["err"], bw["err"])
     profile_round(torch, lambda: trainer.consume(
-        c_walks[0][:C_PROFILE_WALKERS]), "C fused SGNS", "~200 steps")
+        c_walks[0][:C_PROFILE_WALKERS]), "C fused SGNS", "~50 steps")
     since(t_start, "path C")
 
     # ---- path G1: the sharded trainer at path C's width ----------------
@@ -2914,8 +3317,17 @@ def main(argv) -> int:
 
     # ---- path I: LM training at yi-6b's width through the launcher -----
     lm = path_i(np, torch, lm_walks)
-    del lm_walks
     since(t_start, "path I")
+
+    # ---- path J: mamba2-370m whole, phi3.5-moe at published widths -----
+    t_j = time.perf_counter()
+    j1 = path_j1(np, torch, K, S, FA, lm_walks)
+    j2 = path_j2(np, torch, K, S, FA, lm_walks)
+    j3 = path_j3(np, torch, lm_walks)
+    j_secs = time.perf_counter() - t_j
+    flash_err = max(flash_err, j2["flash_err"])
+    del lm_walks
+    since(t_start, "path J")
     run_examples(torch)
     since(t_start, "examples")
 
@@ -2993,6 +3405,9 @@ def main(argv) -> int:
          "one_rounding_ms": fl["one_rounding_ms"],
          "one_rounding_ms_32k": fl["one_rounding_ms_32k"],
          "one_rounding_outside": fl["one_rounding_outside"],
+         "launches_j2_prefill": j2["launches"],
+         "launches_tc_j2_prefill": j2["launches_tc"],
+         "max_abs_err_j2_prefill": j2["flash_err"],
          "bound_ms_32k": fl["bound_32k"][0],
          "bound_by_32k": fl["bound_32k"][1]},
     ]
@@ -3001,6 +3416,19 @@ def main(argv) -> int:
         f"{lm['tokens_s']:.6g} tokens/s, device busy {lm['busy']:.3f}, "
         f"peak {lm['peak_gb']:.2f} GB; card vs CPU {lm['loss_gap']:.3g} "
         f"(loss), {lm['gnorm_gap']:.3g} (grad norm)")
+    log(f"J ({j_secs:.1f} s): {J_MAMBA} whole prefill "
+        f"{j1['prefill_tokens_s']:.6g} tokens/s (warm "
+        f"{j1['warm_tokens_s']:.6g}), decode "
+        f"{j1['decode_ms']:.4f} ms/token, busy {j1['prefill_busy']:.3f} / "
+        f"{j1['decode_busy']:.3f}, peak {j1['peak_gb']:.2f} GB; {J_MOE} "
+        f"{J_MOE_LAYERS} layers prefill {j2['prefill_tokens_s']:.6g} "
+        f"tokens/s (warm {j2['warm_tokens_s']:.6g}), decode {j2['decode_ms']:.4f} ms/token, busy "
+        f"{j2['prefill_busy']:.3f} / {j2['decode_busy']:.3f}, peak "
+        f"{j2['peak_gb']:.2f} GB, dropped {j2['drop_prefill']} / "
+        f"{j2['drop_decode']}; training {j3['ms_step']:.2f} ms/step, "
+        f"{j3['tokens_s']:.6g} tokens/s; card vs CPU {j1['cpu_gap']:.3g} / "
+        f"{j2['cpu_gap']:.3g}, chunked vs stepwise {j1['step_gap']:.3g}, "
+        f"near-ties {j2['near_ties']}")
     log(f"card: {smi}")       # again, where the output's tail keeps it
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)

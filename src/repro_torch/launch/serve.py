@@ -1,14 +1,14 @@
 """Batched serving launcher: prefill + decode loop — port of
 ``repro.launch.serve``.
 
-Prompts are prefilled (filling the KV caches; self-attention through the
-``flash_attention`` kernel on the card), then decoded token by token with
-greedy or temperature sampling. Params are initialised from
+Prompts are prefilled (filling the KV and SSM caches; self-attention
+through the ``flash_attention`` kernel on the card), then decoded token by
+token with greedy or temperature sampling. Params are initialised from
 ``PRNGKey(--seed)`` as the JAX launcher does, so both print the same ids.
 Runs on the card unless ``--device cpu``:
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
-      --device cpu --batch 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --smoke --device cpu --batch 4 --prompt-len 32 --gen 16
 """
 from __future__ import annotations
 
@@ -31,8 +31,7 @@ def _sync(dev: torch.device) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    # the JAX launcher defaults to mamba2-370m, whose layers are not ported
-    ap.add_argument("--arch", default="yi-6b")
+    ap.add_argument("--arch", default="mamba2-370m")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--batch", type=int, default=4)

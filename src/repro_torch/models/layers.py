@@ -134,11 +134,16 @@ class _Rows(torch.autograd.Function):
         return g, None
 
 
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` with a deterministic backward on the card."""
+    return _Rows.apply(table, ids)
+
+
 def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of the table, cast to the compute type (gathered first, which
     gives the values of JAX's cast-then-gather; the table's grad is summed
     in float32, where JAX scatters the compute type's)."""
-    return _Rows.apply(p["tok"], tokens.long()).to(dtype_of(cfg))
+    return take_rows(p["tok"], tokens.long()).to(dtype_of(cfg))
 
 
 def logits_out(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:

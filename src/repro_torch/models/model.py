@@ -9,7 +9,9 @@
 [B, S] and an optional ``"mask"``. Everything runs on the params' device;
 the caches are written in place. Training is differentiable by autograd
 (``optim.grad_utils.value_and_grad``); prefill's self-attention goes
-through the ``flash_attention`` kernel on the card. Encoder-decoder and VLM
+through the ``flash_attention`` kernel on the card; mamba and MoE layers
+are plain torch, as in the JAX package (no Pallas kernel there), and the
+MoE layers route all B*S tokens as one group. Encoder-decoder and VLM
 inputs (``frames``, ``patches``) come with the cross-attention slice.
 """
 from __future__ import annotations

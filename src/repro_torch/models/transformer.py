@@ -8,9 +8,11 @@ JAX package's key tree; a Python loop over superblocks takes the place of
 superblock in ``torch.utils.checkpoint`` (non-reentrant): its activations
 are recomputed in the backward, as ``jax.checkpoint`` does, and no value
 changes. Prefill and decode write the stacked caches in place through
-per-superblock views. Only self-attention layers with dense FFNs are
-ported so far; mamba, MoE and cross-attention layers raise
-``NotImplementedError`` naming their ROADMAP item.
+per-superblock views: attention layers fill their KV caches in place,
+and mamba layers copy their new state into the cache's views. Self-
+attention and mamba layers with dense or MoE FFNs are ported;
+cross-attention layers raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -21,13 +23,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as jr
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import init_mlp, init_rms, mlp_apply, rms_norm
 
-_LATER = {"mamba": "mamba layers: ROADMAP Queue 1 item 11d",
-          "cross_attn": "cross-attention layers: ROADMAP Queue 1 item 11e",
-          "attn_cross": "encoder-decoder layers: ROADMAP Queue 1 item 11e",
-          "moe": "MoE FFN layers: ROADMAP Queue 1 item 11c"}
+_LATER = {"cross_attn": "cross-attention layers: ROADMAP Queue 1 item 11e",
+          "attn_cross": "encoder-decoder layers: ROADMAP Queue 1 item 11e"}
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -69,11 +71,15 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec,
                key: torch.Tensor) -> Dict:
     check_ported(cfg)
     k1, k2, _ = jr.split(key, 3)
-    p: Dict = {"pre_norm": init_rms(cfg, key.device),
-               "attn": attn.init_attn(cfg, k1)}
+    p: Dict = {"pre_norm": init_rms(cfg, key.device)}
+    if spec.kind == "attn":
+        p["attn"] = attn.init_attn(cfg, k1)
+    else:
+        p["mamba"] = mb.init_mamba(cfg, k1)
     if spec.ffn != "none":
         p["post_norm"] = init_rms(cfg, key.device)
-        p["ffn"] = init_mlp(cfg, k2)
+        p["ffn"] = (moe_lib.init_moe(cfg, k2) if spec.ffn == "moe"
+                    else init_mlp(cfg, k2))
     return p
 
 
@@ -91,7 +97,16 @@ def init_blocks(cfg: ModelConfig, key: torch.Tensor) -> Dict:
 def _ffn(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor):
     if spec.ffn == "none":
         return x
-    return x + mlp_apply(cfg, p["ffn"], rms_norm(x, p["post_norm"]))
+    h = rms_norm(x, p["post_norm"])
+    if spec.ffn == "moe":   # one routing group: B*S tokens route together
+        return x + moe_lib.moe_apply(cfg, p["ffn"], h, 1)
+    return x + mlp_apply(cfg, p["ffn"], h)
+
+
+def _write(cache: Dict, new: Dict) -> None:
+    """Copy a mamba layer's new state into its cache's views."""
+    for k, v in new.items():
+        cache[k].copy_(v)
 
 
 # ---------------- one superblock ----------------
@@ -102,7 +117,11 @@ def superblock_train(cfg: ModelConfig, params_sb: Dict, x: torch.Tensor,
     for i, spec in enumerate(cfg.superblock()):
         p = params_sb[f"l{i}"]
         h = rms_norm(x, p["pre_norm"])
-        x = x + attn.attn_train(cfg, p["attn"], h, positions, causal=causal)
+        if spec.kind == "attn":
+            x = x + attn.attn_train(cfg, p["attn"], h, positions,
+                                    causal=causal)
+        else:
+            x = x + mb.mamba_apply(cfg, p["mamba"], h)
         x = _ffn(cfg, spec, p, x)
     return x
 
@@ -132,7 +151,9 @@ def stack_train(cfg: ModelConfig, blocks: Dict, x: torch.Tensor,
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, dtype, device=None) -> Dict:
     check_ported(cfg)
-    return attn.init_cache(cfg, batch, max_len, dtype, device)
+    if spec.kind == "attn":
+        return attn.init_cache(cfg, batch, max_len, dtype, device)
+    return mb.init_mamba_cache(cfg, batch, dtype, device)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -151,9 +172,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
 def superblock_decode(cfg: ModelConfig, params_sb: Dict, cache_sb: Dict,
                       x: torch.Tensor, pos: int) -> Tuple[torch.Tensor, Dict]:
     for i, spec in enumerate(cfg.superblock()):
-        p = params_sb[f"l{i}"]
-        o, _ = attn.attn_decode(cfg, p["attn"], rms_norm(x, p["pre_norm"]),
-                                pos, cache_sb[f"l{i}"])
+        p, c = params_sb[f"l{i}"], cache_sb[f"l{i}"]
+        h = rms_norm(x, p["pre_norm"])
+        if spec.kind == "attn":
+            o, _ = attn.attn_decode(cfg, p["attn"], h, pos, c)
+        else:
+            o, new = mb.mamba_decode(cfg, p["mamba"], h, c)
+            _write(c, new)
         x = _ffn(cfg, spec, p, x + o)
     return x, cache_sb
 
@@ -170,19 +195,23 @@ def stack_decode(cfg: ModelConfig, blocks: Dict, caches: Dict,
 # ---------------- prefill ----------------
 
 def superblock_prefill(cfg: ModelConfig, params_sb: Dict, cache_sb: Dict,
-                       x: torch.Tensor, positions: torch.Tensor
-                       ) -> Tuple[torch.Tensor, Dict]:
+                       x: torch.Tensor,
+                       positions: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     for i, spec in enumerate(cfg.superblock()):
-        p = params_sb[f"l{i}"]
-        o, _ = attn.attn_prefill(cfg, p["attn"], rms_norm(x, p["pre_norm"]),
-                                 positions, cache_sb[f"l{i}"])
+        p, c = params_sb[f"l{i}"], cache_sb[f"l{i}"]
+        h = rms_norm(x, p["pre_norm"])
+        if spec.kind == "attn":
+            o, _ = attn.attn_prefill(cfg, p["attn"], h, positions, c)
+        else:
+            o, new = mb.mamba_prefill(cfg, p["mamba"], h)
+            _write(c, new)
         x = _ffn(cfg, spec, p, x + o)
     return x, cache_sb
 
 
 def stack_prefill(cfg: ModelConfig, blocks: Dict, caches: Dict,
-                  x: torch.Tensor, positions: torch.Tensor
-                  ) -> Tuple[torch.Tensor, Dict]:
+                  x: torch.Tensor,
+                  positions: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     check_ported(cfg)
     for j in range(cfg.num_superblocks):
         x, _ = superblock_prefill(cfg, _index(blocks, j), _index(caches, j),

@@ -4,10 +4,15 @@ example's deterministic lines (graphs, round stats, shapes) word for word,
 and its walks equal the JAX package's for the same plans and seeds;
 float results are held to stated tolerances (embeddings 2e-4 as the
 trainer's tests hold them, micro-F1 0.02; the trainer itself is held in
-tests/test_torch_sgns.py and tests/test_torch_train.py).
+tests/test_torch_sgns.py and tests/test_torch_train.py). The two LM
+examples run beside the JAX scripts themselves: ``serve_decode.py``'s
+greedy tokens equal, ``train_lm_on_walks.py``'s corpus equal and its
+losses within 1e-3.
 ``distributed_walks.py`` runs on both ranks of a 2-process gloo world."""
 import importlib.util
 import re
+import runpy
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -37,14 +42,22 @@ def one_torch_thread():
     torch.set_num_threads(prev)
 
 
-def _run(name: str, capsys):
+def _run(name: str, capsys, *args: str):
     spec = importlib.util.spec_from_file_location(
         f"example_{name}", EXAMPLES / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     capsys.readouterr()
-    result = mod.main(["--device", "cpu"])
+    result = mod.main(["--device", "cpu", *args])
     return result, capsys.readouterr().out.splitlines()
+
+
+def _run_jax(name: str, capsys, monkeypatch, *args: str):
+    """The JAX example ``examples/<name>.py`` as a script; its lines."""
+    monkeypatch.setattr(sys, "argv", [name, *args])
+    capsys.readouterr()
+    runpy.run_path(str(EXAMPLES.parent / f"{name}.py"), run_name="__main__")
+    return capsys.readouterr().out.splitlines()
 
 
 def _graph_line(g) -> str:
@@ -159,3 +172,38 @@ def test_distributed_walks_in_a_world_of_two(world, tmp_path):
             assert np.array_equal(w, want[r * g.n:(r + 1) * g.n])
     assert r1["rounds"] == []
     assert np.array_equal(np.concatenate(r0["rounds"]), want)
+
+
+def test_serve_decode_matches_jax(capsys, monkeypatch):
+    """jamba-v0.1-52b (smoke) by default: the arch line and the greedy
+    "first sequence" word for word."""
+    got, lines = _run("serve_decode", capsys)
+    want = _run_jax("serve_decode", capsys, monkeypatch)
+    assert lines[0] == want[0] == ("arch=jamba-v0.1-52b family=hybrid "
+                                   "subquadratic=True")
+    assert lines[1].startswith("decoded 12 tokens x 4 seqs, ")
+    assert lines[2] == want[2]
+    assert got["tokens"].shape == (4, 12)
+
+
+def test_train_lm_on_walks_matches_jax(capsys, monkeypatch):
+    """mamba2-370m (smoke) by default: the corpus line word for word, the
+    printed losses (steps 0, 5, 10, 14) within 1e-3."""
+    got, lines = _run("train_lm_on_walks", capsys)
+    want = _run_jax("train_lm_on_walks", capsys, monkeypatch)
+    assert lines[0] == want[0] == "arch=mamba2-370m corpus=(992, 33)"
+    step = re.compile(r"^step\s+(\d+)  loss (\S+)  ")
+    mine = [step.match(x).groups() for x in lines[1:-1]]
+    theirs = [step.match(x).groups() for x in want[1:-1]]
+    assert [int(i) for i, _ in mine] == [int(i) for i, _ in theirs] == \
+        [0, 5, 10, 14]
+    np.testing.assert_allclose([float(l) for _, l in mine],
+                               [float(l) for _, l in theirs], atol=1e-3,
+                               rtol=0)
+    assert lines[-1] == want[-1] == "done" and len(got["losses"]) == 15
+
+
+@pytest.mark.parametrize("name", ["serve_decode", "train_lm_on_walks"])
+def test_lm_examples_refuse_cross_attention(name, capsys):
+    with pytest.raises(NotImplementedError, match="item 11e"):
+        _run(name, capsys, "--arch", "llama-3.2-vision-11b")

@@ -39,7 +39,8 @@ from repro_torch.models import transformer as ttf
 from repro_torch.optim.grad_utils import value_and_grad
 from repro_torch.optim.optimizers import adamw
 
-ARCHS = ["yi-6b", "minitron-4b"]
+ARCHS = ["yi-6b", "minitron-4b", "mamba2-370m", "phi3.5-moe-42b-a6.6b",
+         "mixtral-8x22b", "jamba-v0.1-52b"]
 
 
 @pytest.fixture(autouse=True)
@@ -174,9 +175,10 @@ def test_training_refuses_what_is_not_ported():
             tmodel.loss_fn(tcfg, tp, dict(batch, **{name: x}))
     with pytest.raises(NotImplementedError, match="item 11e"):
         ttf.stack_train(tcfg, tp["blocks"], x, torch.arange(4), memory=x)
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        ttf.stack_train(tconfigs.smoke_config("mixtral-8x22b"),
-                        tp["blocks"], x, torch.arange(4))
+    for arch in ("llama-3.2-vision-11b", "seamless-m4t-medium"):
+        with pytest.raises(NotImplementedError, match="item 11e"):
+            ttf.stack_train(tconfigs.smoke_config(arch), tp["blocks"], x,
+                            torch.arange(4))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -198,11 +200,16 @@ def test_stack_train_remat_changes_nothing(arch):
 # ---------------------------------------------------- loss and grads --
 @pytest.mark.parametrize("arch,mask", [("yi-6b", False),
                                        ("minitron-4b", False),
-                                       ("yi-6b", True)])
+                                       ("yi-6b", True),
+                                       ("mamba2-370m", False),
+                                       ("phi3.5-moe-42b-a6.6b", False),
+                                       ("mixtral-8x22b", True),
+                                       ("jamba-v0.1-52b", False)])
 def test_loss_and_grads_match_jax(arch, mask):
     """``forward_train`` logits 1e-4, ``loss_fn`` 1e-5 and the grad of every
     leaf 1e-4 against ``jax.value_and_grad``; the JAX config's remat and
-    scan as they are."""
+    scan as they are. S = 17, where JAX's mamba grads are finite
+    (tests/test_torch_mamba.py holds the port where they are not)."""
     jcfg, tcfg, jp, tp = _setup(arch, 1)
     batch = _batch(jcfg.vocab, seed=4, mask=mask)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -350,3 +357,49 @@ def test_launcher_lm_matches_jax_and_resumes(tmp_path, monkeypatch, capsys):
     assert "no step ran" in out and "done" not in out
     assert last["losses"] == [] and last["start_step"] == 7
     assert sorted(os.listdir(port_dir)) == steps
+
+
+MAMBA_ARGS = ["--task", "lm", "--arch", "mamba2-370m", "--smoke",
+              "--log-every", "1", "--steps", "5"]
+
+
+def test_launcher_lm_mamba_matches_jax(tmp_path, monkeypatch, capsys):
+    """``--arch mamba2-370m --smoke`` at ``--seq 32`` (one chunk, where
+    JAX's grads are finite): the corpus line and every step's loss and
+    grad norm within 1e-4 of the JAX launcher's printed ones (plus their
+    printed rounding)."""
+    argv = MAMBA_ARGS + ["--seq", "32"]
+    got = launch.main(argv + ["--device", "cpu", "--ckpt-dir",
+                              str(tmp_path / "port")])
+    port_out = capsys.readouterr().out
+    jax_out, jax_steps = _jax_run(argv + ["--ckpt-dir", str(tmp_path /
+                                                            "jax")],
+                                  monkeypatch, capsys)
+    assert re.search(r"corpus: .*", port_out).group() == \
+        re.search(r"corpus: .*", jax_out).group()
+    assert [s for s, _, _ in jax_steps] == list(range(5))
+    np.testing.assert_allclose(got["losses"], [l for _, l, _ in jax_steps],
+                               atol=1e-4 + 5e-5, rtol=0)
+    np.testing.assert_allclose(got["gnorms"], [g for _, _, g in jax_steps],
+                               atol=1e-4 + 5e-4, rtol=0)
+
+
+def test_launcher_lm_mamba_stays_finite_where_jax_goes_nan(tmp_path,
+                                                          monkeypatch,
+                                                          capsys):
+    """At the launcher's default ``--seq 128`` a chunk's summed decay
+    passes 88 and JAX's grads are NaN from the first step, so its losses
+    are NaN from step 1 on (src/repro/models/mamba.py:97's exp of the raw
+    difference); the port's step 0 loss equals JAX's (1e-4) and every
+    loss and grad norm stays finite."""
+    got = launch.main(MAMBA_ARGS + ["--device", "cpu", "--ckpt-dir",
+                                    str(tmp_path / "port")])
+    capsys.readouterr()
+    _, jax_steps = _jax_run(MAMBA_ARGS + ["--ckpt-dir",
+                                          str(tmp_path / "jax")],
+                            monkeypatch, capsys)
+    assert np.isnan(jax_steps[0][2]) and all(
+        np.isnan(l) for _, l, _ in jax_steps[1:])
+    assert abs(got["losses"][0] - jax_steps[0][1]) <= 1e-4 + 5e-5
+    assert np.isfinite(got["losses"]).all() and np.isfinite(
+        got["gnorms"]).all()
