@@ -2,8 +2,8 @@
 """Drive the PyTorch / CUDA port (walks, SGNS training, LM serving,
 embedding serving under graph churn, the training launcher on an on-disk
 edge list, the sharded walk backend and tables across a
-``torch.distributed`` world, LM training, the MoE and Mamba2 layers and
-the examples) on one NVIDIA GPU.
+``torch.distributed`` world, LM training, the MoE and Mamba2 layers, cross
+attention and the examples) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -206,17 +206,44 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    steps, then a fresh run resumed from their checkpoint to 6 (the
    restored params and AdamW state ``torch.equal`` to the saved); the
    losses and grad norms finite, ms/step and tokens/s;
-13. the examples — ``examples/torch/{quickstart,classify_nodes,
+13. path K — cross attention, right after path J, prompts from path A's
+   round-0 walks, memories normal(0, 1) from a numpy seed in float32
+   (zero memory would leave the cross layers inert). K1:
+   seamless-m4t-medium whole (12 encoder and 12 decoder layers at
+   published widths, bf16 compute, f32 params): ``prefill`` of B=4 x
+   S=4,096 with frames [4, 1,024, 1,024] and 32 greedy ``serve_step``s
+   with every count set to 0 just before; ``flash_attention`` exactly 24
+   times at prefill (12 with ``causal=False``: the encoder), all on the
+   tensor-core route, and never at decode; a second prefill
+   ``torch.equal``; each cross layer's ``mk``/``mv`` ``torch.equal`` to
+   ``memory_kv`` of the encoder output recomputed alone, and unchanged by
+   decode steps; frames from another seed move the logits; profiles; the
+   kernel at encoder layer 0's (non-causal) and decoder layer 0's inputs
+   within path E's bf16 tolerance of its plain version, timed beside it,
+   SDPA and the bound; float32 card vs CPU at 2 encoder and 2 decoder
+   layers, B=1, S=256 with the full 1,024 frames (1e-3, 8 greedy tokens
+   equal). K2: llama-3.2-vision-11b at published widths cut from 40 to
+   5 layers (four self-attention layers and the cross layer over 1,600
+   patch embeddings): the same, with 4 launches at prefill, and card vs
+   CPU on the whole cut model. K3: ``launch.train.lm_train_step`` on
+   seamless whole, B=8 x S=256 with seeded frames, 5 steps: losses and
+   grad norms finite, every encoder leaf's first AdamW moment non-zero
+   after step 1, none of the four kernels launched; ms/step, tokens/s,
+   peak memory and a profile;
+14. the examples — ``examples/torch/{quickstart,classify_nodes,
    serve_embeddings,distributed_walks,train_lm_on_walks,
    serve_decode}.py`` on the card in subprocesses started together
-   (``distributed_walks.py`` at world 1), and ``train_lm_on_walks.py
+   (``distributed_walks.py`` at world 1), ``train_lm_on_walks.py
    --arch jamba-v0.1-52b`` (attention, Mamba and MoE layers at its smoke
-   size); each must exit 0.
+   size) and ``--arch llama-3.2-vision-11b``, and ``serve_decode.py
+   --arch seamless-m4t-medium`` (the cross-attention archs with the
+   examples' zero memory); each must exit 0.
 
 It prints the card's name and power limit, the build seconds, the
 registers and spills of the walk kernels and the tensor-core kernel,
 walker-steps per second for each walk phase, prefill tokens/s and decode
-ms/token (paths E and J), path J's dropped assignments, path F's latency quantiles, QPS, hit rate, occupancy, refresh
+ms/token (paths E, J and K), path J's dropped assignments, path F's
+latency quantiles, QPS, hit rate, occupancy, refresh
 host ms and device-busy share, LM training's ms/step, tokens/s, peak
 memory and busy share, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -313,13 +340,20 @@ J_PROFILE_STEPS = 8
 J3_STEPS = 6                    # --task lm --arch mamba2-370m, full depth
 J3_SAVE = 3                     # J3's first run checkpoints here
 J_WORK = ROOT / "build" / "chip_smoke_j"     # J3's checkpoint
+K_SEAMLESS = "seamless-m4t-medium"     # K1: whole, published widths
+K_VISION, K_VISION_LAYERS = "llama-3.2-vision-11b", 5   # K2: 40 -> 5
+K_CPU_LAYERS, K_CPU_SEQ = 2, 256       # K1: card vs CPU, 2 + 2 layers, f32
+K3_BATCH, K3_SEQ, K3_STEPS = 8, 256, 5
+K_PROFILE_STEPS = 8
 # (script, arguments; None: a checkpoint dir of the phase's own), each on
 # the card in its own process
 EXAMPLES = (("quickstart", []), ("classify_nodes", []),
             ("serve_embeddings", []), ("distributed_walks", None),
             ("train_lm_on_walks", []),
             ("train_lm_on_walks", ["--arch", "jamba-v0.1-52b"]),
-            ("serve_decode", []))
+            ("train_lm_on_walks", ["--arch", "llama-3.2-vision-11b"]),
+            ("serve_decode", []),
+            ("serve_decode", ["--arch", "seamless-m4t-medium"]))
 EXAMPLES_WAIT_S = 300
 F_REQUESTS = 4_000              # serve_graph --full replays 50,000
 F_WINDOW, F_K = 10, 10
@@ -1896,18 +1930,18 @@ def check_flash(np, torch, FA) -> float:
     return err
 
 
-def flash_flops(b: int, s: int, h: int, dh: int) -> int:
-    """4 * dh flops for each of the s (s + 1) / 2 unmasked (query, key)
-    pairs of a causal head."""
-    return 4 * b * h * dh * (s * (s + 1) // 2)
+def flash_flops(b: int, s: int, h: int, dh: int, causal: bool = True) -> int:
+    """4 * dh flops for each unmasked (query, key) pair of a head: s (s +
+    1) / 2 of them causal, s * s bidirectional."""
+    return 4 * b * h * dh * (s * (s + 1) // 2 if causal else s * s)
 
 
-def flash_bound(b: int, s: int, h: int, kv: int, dh: int):
-    """Least time for causal bf16 attention: q, k, v read once and o
-    written once, against :func:`flash_flops` at the bf16 tensor-core
-    rate."""
+def flash_bound(b: int, s: int, h: int, kv: int, dh: int,
+                causal: bool = True):
+    """Least time for bf16 attention: q, k, v read once and o written once,
+    against :func:`flash_flops` at the bf16 tensor-core rate."""
     nbytes = 2 * b * s * dh * (2 * h + 2 * kv)
-    return bound_ms(nbytes, flash_flops(b, s, h, dh), BF16_OPS_PER_S)
+    return bound_ms(nbytes, flash_flops(b, s, h, dh, causal), BF16_OPS_PER_S)
 
 
 def load_one_rounding(build):
@@ -1946,24 +1980,25 @@ def load_one_rounding(build):
     return run
 
 
-def sdpa_ms(torch, q, k, v, reps: int) -> float:
+def sdpa_ms(torch, q, k, v, reps: int, causal: bool = True) -> float:
     """PyTorch's fused attention on the same inputs (the yardstick): GQA in
-    place, causal, on a fused backend only (the math backend would
+    place, causal or not, on a fused backend only (the math backend would
     materialize the scores)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
                       SDPBackend.EFFICIENT_ATTENTION]):
-        return cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+        return cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
                                            enable_gqa=True), reps)
 
 
-def serve(torch, M, cfg, params, tokens, gen: int):
-    """``prefill`` then ``gen - 1`` greedy ``serve_step``s; returns (the
-    logits of every step [gen, B, V], the tokens [B, gen], prefill seconds,
-    decode seconds, kernel launches at prefill and at decode, each as
-    (total, tensor-core, SIMT))."""
+def serve(torch, M, cfg, params, tokens, gen: int, memory=None):
+    """``prefill`` (with ``memory``'s ``frames`` or ``patches`` for the
+    cross-attention archs) then ``gen - 1`` greedy ``serve_step``s;
+    returns (the logits of every step [gen, B, V], the tokens [B, gen],
+    prefill seconds, decode seconds, kernel launches at prefill and at
+    decode, each as (total, tensor-core, SIMT), and the caches)."""
     from repro_torch.kernels import flash_attention as FA
     dev = params["embed"]["tok"].device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -1973,7 +2008,8 @@ def serve(torch, M, cfg, params, tokens, gen: int):
     FA.flash_attention.launches_tc = 0
     FA.flash_attention.launches_simt = 0
     t0 = time.perf_counter()
-    logits, caches = M.prefill(cfg, params, {"tokens": tokens},
+    logits, caches = M.prefill(cfg, params, {"tokens": tokens,
+                                             **(memory or {})},
                                max_len=s + gen)
     sync()
     t_prefill = time.perf_counter() - t0
@@ -1987,7 +2023,8 @@ def serve(torch, M, cfg, params, tokens, gen: int):
     sync()
     return (torch.stack(outs), torch.stack(toks, 1), t_prefill,
             time.perf_counter() - t0, at_prefill,
-            tuple(a - b for a, b in zip(flash_counts(FA), at_prefill)))
+            tuple(a - b for a, b in zip(flash_counts(FA), at_prefill)),
+            caches)
 
 
 def path_e(np, torch, walks, one, dev="cuda"):
@@ -2015,7 +2052,7 @@ def path_e(np, torch, walks, one, dev="cuda"):
         f"s host")
     tokens = torch.from_numpy(walks_to_lm_tokens(
         walks % cfg.vocab, E_SEQ)[:E_BATCH]).to(dev)
-    logits, toks, t_pre, t_dec, launches, dec_launches = serve(
+    logits, toks, t_pre, t_dec, launches, dec_launches, _ = serve(
         torch, M, cfg, params, tokens, E_GEN + 1)
     n = cfg.num_layers
     if (launches, dec_launches) != ((n, n, 0), (0, 0, 0)):
@@ -2341,20 +2378,24 @@ def zero_counts(K, S, FA) -> None:
 
 
 def first_layers(params, n: int):
-    """The params of a model cut to its first ``n`` superblocks (views)."""
+    """The params of a model cut to its first ``n`` superblocks, of the
+    decoder and of the encoder where there is one (views)."""
     def cut(tree):
         return {k: cut(v) if isinstance(v, dict) else v[:n]
                 for k, v in tree.items()}
-    return {"embed": params["embed"], "blocks": cut(params["blocks"])}
+    return {k: v if k == "embed" else cut(v) for k, v in params.items()}
 
 
-def card_vs_cpu(torch, M, cfg, params, prompt, label: str) -> float:
-    """``serve`` of ``prompt`` for ``E_CPU_GEN`` greedy tokens with the same
-    float32 params on the card and on the CPU: the logits within
-    ``E_CPU_TOL`` (atol and rtol), the tokens equal. Returns the largest
-    |diff| of the logits."""
-    card = serve(torch, M, cfg, params, prompt.to(DEV), E_CPU_GEN)
-    host = serve(torch, M, cfg, _to_cpu(params), prompt, E_CPU_GEN)
+def card_vs_cpu(torch, M, cfg, params, prompt, label: str,
+                memory=None) -> float:
+    """``serve`` of ``prompt`` (and ``memory``, a dict of CPU tensors) for
+    ``E_CPU_GEN`` greedy tokens with the same float32 params on the card
+    and on the CPU: the logits within ``E_CPU_TOL`` (atol and rtol), the
+    tokens equal. Returns the largest |diff| of the logits."""
+    memory = memory or {}
+    card = serve(torch, M, cfg, params, prompt.to(DEV), E_CPU_GEN,
+                 {k: v.to(DEV) for k, v in memory.items()})
+    host = serve(torch, M, cfg, _to_cpu(params), prompt, E_CPU_GEN, memory)
     gap = float((card[0].cpu() - host[0]).abs().max())
     log(f"{label}: float32 B={prompt.shape[0]} S={prompt.shape[1]}, "
         f"{E_CPU_GEN} greedy tokens: card vs CPU logits max |diff| "
@@ -2369,17 +2410,19 @@ def card_vs_cpu(torch, M, cfg, params, prompt, label: str) -> float:
     return gap
 
 
-def j_serve(np, torch, K, S, FA, M, cfg, params, tokens, label: str):
-    """J's main path for one arch: every count set to 0, then ``prefill``
-    of ``tokens`` and ``J_GEN`` greedy ``serve_step``s; the counts read
-    just after. Then a second (warm) prefill, whose logits must be
-    ``torch.equal`` to the first's. Logs prefill tokens/s (cold and
-    warm), decode ms/token and peak memory; returns ``serve``'s tuple,
-    the counts (step, walk, sgns) and the warm prefill's seconds."""
+def j_serve(np, torch, K, S, FA, M, cfg, params, tokens, label: str,
+            memory=None):
+    """J's (and K's) main path for one arch: every count set to 0, then
+    ``prefill`` of ``tokens`` (and ``memory``) and ``J_GEN`` greedy
+    ``serve_step``s; the counts read just after. Then a second (warm)
+    prefill, whose logits must be ``torch.equal`` to the first's. Logs
+    prefill tokens/s (cold and warm), decode ms/token and peak memory;
+    returns ``serve``'s tuple, the counts (step, walk, sgns) and the warm
+    prefill's seconds."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(K, S, FA)
-    out = serve(torch, M, cfg, params, tokens, J_GEN + 1)
+    out = serve(torch, M, cfg, params, tokens, J_GEN + 1, memory)
     others = kernel_counts(K, S, FA)[:3]
     logits, toks, t_pre, t_dec = out[:4]
     if not bool(torch.isfinite(logits).all()) or toks.min() < 0 or \
@@ -2396,7 +2439,7 @@ def j_serve(np, torch, K, S, FA, M, cfg, params, tokens, label: str):
         f"{toks[0, :8].tolist()}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    again, _ = M.prefill(cfg, params, {"tokens": tokens},
+    again, _ = M.prefill(cfg, params, {"tokens": tokens, **(memory or {})},
                          max_len=s + J_GEN + 1)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
@@ -2718,10 +2761,326 @@ def path_j3(np, torch, walks) -> dict:
     return r
 
 
+def launch_recorder(FA):
+    """Wrap ``FA.launch`` to keep the ``causal`` flag of every launch the
+    model makes; returns the list it appends to and a function that puts
+    the original back."""
+    orig, seen = FA.launch, []
+
+    def recorded(which, q, k, v, window=0, causal=True):
+        seen.append(bool(causal))
+        return orig(which, q, k, v, window, causal)
+    FA.launch = recorded
+
+    def done():
+        FA.launch = orig
+    return seen, done
+
+
+def k_memory(np, torch, cfg, b: int, seed: int, dev=None) -> dict:
+    """``{"frames": ...}`` (encoder-decoder) or ``{"patches": ...}`` (VLM)
+    [b, M, d_model] float32, normal(0, 1) from a numpy seed."""
+    name = "frames" if cfg.enc_layers else "patches"
+    m = cfg.num_audio_frames if cfg.enc_layers else cfg.num_image_tokens
+    a = np.random.default_rng(seed).standard_normal(
+        (b, m, cfg.d_model), dtype=np.float32)
+    return {name: torch.from_numpy(a).to(dev or DEV)}
+
+
+def k_memory_kv(torch, cfg, params, memory: dict):
+    """Each cross layer's (mk, mv) recomputed alone from the memory: the
+    encoder's output through ``stack_encode`` (seamless) or the patches
+    (llama-vision), in the cache's dtype; as [(superblock, position,
+    mk, mv)]."""
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.layers import dtype_of
+    dt = dtype_of(cfg)
+    if cfg.enc_layers:
+        frames = memory["frames"].to(dt)
+        mem = TF.stack_encode(M.encoder_config(cfg), params["encoder"],
+                              frames, torch.arange(frames.shape[1],
+                                                   device=frames.device))
+    else:
+        mem = memory["patches"].to(dt)
+    out = []
+    for i, spec in enumerate(cfg.superblock()):
+        if spec.kind not in ("cross_attn", "attn_cross"):
+            continue
+        name = "xattn" if spec.kind == "attn_cross" else "attn"
+        for j in range(cfg.num_superblocks):
+            p = {k: v[j] for k, v in params["blocks"][f"l{i}"][name].items()}
+            mk, mv = ATT.memory_kv(cfg, p, mem)
+            out.append((j, f"l{i}", mk.to(dt), mv.to(dt)))
+    return out
+
+
+def k_flash_layer0(torch, FA, cfg, params, tokens, memory: dict, label: str):
+    """The kernel at decoder layer 0's self-attention inputs (causal) and,
+    for seamless, at encoder layer 0's (``causal=False``): each held to
+    its plain version within path E's bf16 tolerance on the tensor-core
+    route, then timed beside its plain version, SDPA and its bound.
+    Returns {"decoder"|"encoder": readings}."""
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import prefill_qkv
+    from repro_torch.models.layers import dtype_of, embed_tokens, rms_norm
+    sites = []
+    blocks = params["blocks"]["l0"]
+    h = rms_norm(embed_tokens(cfg, params["embed"], tokens),
+                 blocks["pre_norm"][0])
+    sites.append(("decoder", cfg, blocks, h, True))
+    if cfg.enc_layers:
+        enc = params["encoder"]["l0"]
+        frames = memory["frames"].to(dtype_of(cfg))
+        sites.append(("encoder", M.encoder_config(cfg), enc,
+                      rms_norm(frames, enc["pre_norm"][0]), False))
+    out = {}
+    for name, c, blk, x, causal in sites:
+        p = {k: v[0] for k, v in blk["attn"].items()}
+        q, k, v = prefill_qkv(c, p, x, torch.arange(x.shape[1],
+                                                    device=x.device))
+        tc = FA.flash_attention.launches_tc
+        err = flash_compare(torch, FA, q, k, v, 0, causal,
+                            f"{label} {name} layer 0", E_FLASH_TOL["bfloat16"])
+        if FA.flash_attention.launches_tc - tc != 2:
+            raise AssertionError(f"{label}: the {name} layer-0 comparison "
+                                 f"did not take the tensor-core route")
+        b, s_, hh, dh = q.shape
+        r = {"err": err, "shape": (b, s_, hh, k.shape[2], dh),
+             "causal": causal,
+             "ms": cuda_ms(torch, lambda: FA.flash_attention(
+                 q, k, v, 0, causal), 20),
+             "plain_ms": cuda_ms(torch, lambda: FA.flash_attention_plain(
+                 q, k, v, 0, causal), 2),
+             "library_ms": sdpa_ms(torch, q, k, v, 20, causal),
+             "bound": flash_bound(b, s_, hh, k.shape[2], dh, causal)}
+        r["tflops"] = flash_flops(b, s_, hh, dh, causal) / r["ms"] / 1e9
+        log(f"{label}: flash_attention at {name} layer 0 (B={b} S={s_} "
+            f"H={hh} KV={k.shape[2]} dh={dh} bf16 causal={causal}): "
+            f"tensor-core {r['ms']:.4f} ms = {r['tflops']:.1f} TFLOP/s, "
+            f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+            f"(tensor-core / SDPA {r['ms'] / r['library_ms']:.3f}), bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); max |kernel - "
+            f"plain| {err:.3g} (atol, rtol {E_FLASH_TOL['bfloat16']})")
+        out[name] = r
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def path_k_serve(np, torch, K, S, FA, walks, arch: str, layers=None,
+                 label: str = "K") -> dict:
+    """K1 / K2: one cross-attention arch at published widths (``layers``
+    cuts the depth), bf16 compute, f32 params: ``prefill`` of B=4 x S=4,096
+    with seeded memory and ``J_GEN`` greedy ``serve_step``s through
+    ``j_serve`` (every count set to 0 just before, read just after), the
+    flash launches by ``causal`` flag, the memory caches unchanged by
+    decode and equal to ``memory_kv`` recomputed alone, another seed's
+    memory changing the logits, profiles, the kernel at layer 0's inputs,
+    then float32 card vs CPU."""
+    import dataclasses
+    from repro_torch import random as jr
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import walks_to_lm_tokens
+    from repro_torch.models import model as M
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, jr.PRNGKey(0), DEV)
+    torch.cuda.synchronize()
+    r = {"init_s": time.perf_counter() - t0,
+         "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "params_gb": sum(v.numel() * 4 for v in _leaves(params)) / 1e9}
+    log(f"{label}: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} "
+        f"({cfg.mlp_act}) vocab={cfg.vocab} layers={cfg.num_layers} "
+        f"encoder layers={cfg.enc_layers} memory "
+        f"{cfg.num_audio_frames if cfg.enc_layers else cfg.num_image_tokens}"
+        f" ({cfg.param_count():,} params, {r['params_gb']:.2f} GB f32, "
+        f"dtype={cfg.dtype}) initialised on the card in {r['init_s']:.2f} "
+        f"s host; peak memory of init {r['init_peak_gb']:.2f} GB")
+    tokens = torch.from_numpy(walks_to_lm_tokens(
+        walks % cfg.vocab, J_SEQ)[:J_BATCH]).to(DEV)
+    memory = k_memory(np, torch, cfg, J_BATCH, 0)
+    seen, done = launch_recorder(FA)
+    try:
+        out, others, warm = j_serve(np, torch, K, S, FA, M, cfg, params,
+                                    tokens, label, memory)
+    finally:
+        done()
+    enc = cfg.enc_layers
+    n = cfg.num_superblocks * sum(
+        s.kind in ("attn", "attn_cross") for s in cfg.superblock()) + enc
+    noncausal = seen[:n].count(False)
+    if others != (0, 0, 0) or out[4] != (n, n, 0) or out[5] != (0, 0, 0) \
+            or noncausal != enc or len(seen) != 2 * n:
+        raise AssertionError(f"{label}: launches (step, walk, sgns) "
+                             f"{others}, flash {out[4]} at prefill "
+                             f"({noncausal} with causal=False) and {out[5]} "
+                             f"at decode, {len(seen)} in two prefills; want "
+                             f"(0, 0, 0), {(n, n, 0)} ({enc}), (0, 0, 0), "
+                             f"{2 * n}")
+    r.update({"prefill_tokens_s": J_BATCH * J_SEQ / out[2],
+              "warm_tokens_s": J_BATCH * J_SEQ / warm,
+              "decode_ms": out[3] / J_GEN * 1e3,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": out[4][0], "launches_tc": out[4][1],
+              "launches_noncausal": noncausal})
+    logits, toks, caches = out[0], out[1], out[6]
+    del out
+    # the memory caches after prefill and J_GEN decode steps: each equal to
+    # memory_kv recomputed alone from the memory
+    recomputed = k_memory_kv(torch, cfg, params, memory)
+    for j, name, mk, mv in recomputed:
+        c = caches[name]
+        if not (torch.equal(c["mk"][j], mk) and torch.equal(c["mv"][j], mv)):
+            raise AssertionError(f"{label}: {name}'s mk/mv of superblock {j} "
+                                 f"differ from memory_kv recomputed alone")
+    cross = sorted({name for _, name, _, _ in recomputed})
+    del recomputed, caches
+    other = k_memory(np, torch, cfg, J_BATCH, 1)
+    moved, _ = M.prefill(cfg, params, {"tokens": tokens, **other},
+                         max_len=J_SEQ + 1)
+    r["other_memory_gap"] = float((moved - logits[0]).abs().max())
+    log(f"{label}: memory from another seed moves the last-token logits by "
+        f"max |diff| {r['other_memory_gap']:.4g}")
+    if not r["other_memory_gap"] > 0:
+        raise AssertionError(f"{label}: the memory does not reach the "
+                             f"logits")
+    del moved, other, logits
+    batch = {"tokens": tokens, **memory}
+    wall, busy, events = profiled(torch, lambda: M.prefill(
+        cfg, params, batch, max_len=J_SEQ + J_GEN + 1))
+    log_profile(f"{label} prefill", "prefill", wall, busy, events)
+    r["prefill_busy"] = busy / wall
+    _, caches = M.prefill(cfg, params, batch, max_len=J_SEQ + J_GEN + 1)
+    before = [(caches[name]["mk"].clone(), caches[name]["mv"].clone())
+              for name in cross]
+    steps = min(K_PROFILE_STEPS, J_GEN)
+
+    def decode():
+        t = toks[:, 0]
+        for i in range(steps):
+            t = torch.argmax(M.serve_step(cfg, params, t, J_SEQ + i,
+                                          caches)[0], -1)
+    wall, busy, events = profiled(torch, decode)
+    log_profile(f"{label} decode", f"{steps} steps", wall, busy, events)
+    r["decode_busy"] = busy / wall
+    if not all(torch.equal(caches[name]["mk"], a) and
+               torch.equal(caches[name]["mv"], b)
+               for name, (a, b) in zip(cross, before)):
+        raise AssertionError(f"{label}: decode wrote the memory caches")
+    log(f"{label}: flash launches per prefill {r['launches']} (all "
+        f"tensor-core; {noncausal} with causal=False), 0 at decode; mk/mv "
+        f"of every cross layer torch.equal memory_kv recomputed alone after "
+        f"{J_GEN} decode steps, and torch.equal before and after {steps} "
+        f"more")
+    del caches, before
+    torch.cuda.empty_cache()
+    r["flash"] = k_flash_layer0(torch, FA, cfg, params, tokens, memory, label)
+
+    # card vs CPU: float32, the params made once on the card
+    cut = K_CPU_LAYERS if enc else cfg.num_superblocks
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=cut * len(cfg.superblock()),
+                                enc_layers=cut if enc else 0)
+    p32 = first_layers(params, cut)
+    del params
+    torch.cuda.empty_cache()
+    prompt = torch.from_numpy(walks_to_lm_tokens(walks % cfg.vocab,
+                                                 K_CPU_SEQ)[:1])
+    r["cpu_gap"] = card_vs_cpu(torch, M, cfg32, p32, prompt,
+                               f"{label} ({cfg32.num_layers} decoder, "
+                               f"{cfg32.enc_layers} encoder layers)",
+                               k_memory(np, torch, cfg, 1, 2, "cpu"))
+    del p32
+    torch.cuda.empty_cache()
+    return r
+
+
+def path_k3(np, torch, K, S, FA, walks) -> dict:
+    """K3: ``lm_train_step`` of the launcher on seamless-m4t-medium whole,
+    bf16 compute, B=8 x S=256 with seeded frames, ``K3_STEPS`` steps: the
+    losses and grad norms finite, every encoder leaf's grad non-zero on
+    the first step (its AdamW first moment), none of the four kernels
+    launched; ms/step, tokens/s, peak memory and a profile."""
+    from repro_torch import random as jr
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import walks_to_lm_tokens
+    from repro_torch.launch import train as LT
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import adamw
+    cfg = get_config(K_SEAMLESS)
+    tokens = walks_to_lm_tokens(walks % cfg.vocab, K3_SEQ + 1)
+    rng = np.random.default_rng(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, jr.PRNGKey(0), DEV)
+    opt = adamw(I_LR)
+    state = opt.init(params)
+    frames = [k_memory(np, torch, cfg, K3_BATCH, 10 + i)
+              for i in range(K3_STEPS + 2)]
+    zero_counts(K, S, FA)
+    losses, gnorms, ends = [], [], []
+    for step in range(K3_STEPS):
+        seqs = torch.from_numpy(tokens[rng.integers(
+            0, tokens.shape[0], K3_BATCH)]).to(DEV)
+        batch = {"tokens": seqs[:, :-1], "labels": seqs[:, 1:],
+                 **frames[step]}
+        params, state, loss, gnorm = LT.lm_train_step(cfg, opt, params,
+                                                      state, batch)
+        losses.append(float(loss))
+        gnorms.append(float(gnorm))
+        ends.append(time.perf_counter())
+        if step == 0:
+            flat = _leaves(state.mu["encoder"])
+            dead = sum(not bool(m.abs().max() > 0) for m in flat)
+            if not flat or dead:
+                raise AssertionError(f"K3: {dead} of the {len(flat)} encoder "
+                                     f"leaves have a zero grad on step 1")
+    counts = kernel_counts(K, S, FA)
+    if counts != (0, 0, 0, 0) or not np.isfinite(losses).all() or \
+            not np.isfinite(gnorms).all():
+        raise AssertionError(f"K3: launches {counts}, losses {losses}, grad "
+                             f"norms {gnorms}")
+    dts = np.diff(ends)
+    r = {"ms_step": float(np.median(dts)) * 1e3,
+         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    r["tokens_s"] = K3_BATCH * K3_SEQ / (r["ms_step"] / 1e3)
+    log(f"K3: lm_train_step on {cfg.name} whole ({cfg.enc_layers} + "
+        f"{cfg.num_layers} layers, {cfg.param_count():,} params, bf16, "
+        f"AdamW lr {I_LR}) B={K3_BATCH} S={K3_SEQ} with seeded frames "
+        f"[{K3_BATCH}, {cfg.num_audio_frames}, {cfg.d_model}]: losses "
+        f"{[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in gnorms]}; every encoder leaf ({len(flat)}) "
+        f"has a non-zero grad on step 1; ms/step median {r['ms_step']:.2f} "
+        f"of {len(dts)} steady steps = {r['tokens_s']:.6g} tokens/s; peak "
+        f"memory {r['peak_gb']:.2f} GB; no kernel launched")
+
+    def steps():
+        nonlocal params, state
+        for i in range(2):
+            seqs = torch.from_numpy(tokens[rng.integers(
+                0, tokens.shape[0], K3_BATCH)]).to(DEV)
+            params, state, _, _ = LT.lm_train_step(cfg, opt, params, state, {
+                "tokens": seqs[:, :-1], "labels": seqs[:, 1:],
+                **frames[K3_STEPS + i]})
+    wall, busy, events = profiled(torch, steps)
+    log_profile("K3 train", "2 steps", wall, busy, events)
+    r["busy"] = busy / wall
+    del params, state
+    torch.cuda.empty_cache()
+    return r
+
+
 def run_examples(torch) -> None:
-    """The six ``examples/torch/`` scripts on the card (and
-    ``train_lm_on_walks.py`` once more with jamba, a hybrid of attention,
-    Mamba and MoE layers), in subprocesses started together
+    """The six ``examples/torch/`` scripts on the card (and the LM ones
+    once more with jamba, a hybrid of attention, Mamba and MoE layers, and
+    with the cross-attention archs), in subprocesses started together
     (``distributed_walks.py`` at world 1); any non-zero exit fails the
     run. Their output is printed as they left it."""
     work = ROOT / "build" / "chip_smoke_examples"
@@ -3326,8 +3685,19 @@ def main(argv) -> int:
     j3 = path_j3(np, torch, lm_walks)
     j_secs = time.perf_counter() - t_j
     flash_err = max(flash_err, j2["flash_err"])
-    del lm_walks
     since(t_start, "path J")
+
+    # ---- path K: cross attention, seamless whole and llama-vision ------
+    t_k = time.perf_counter()
+    k1 = path_k_serve(np, torch, K, S, FA, lm_walks, K_SEAMLESS, None, "K1")
+    k2 = path_k_serve(np, torch, K, S, FA, lm_walks, K_VISION,
+                      K_VISION_LAYERS, "K2")
+    k3 = path_k3(np, torch, K, S, FA, lm_walks)
+    k_secs = time.perf_counter() - t_k
+    flash_err = max(flash_err, *(r["err"] for k in (k1, k2)
+                                 for r in k["flash"].values()))
+    del lm_walks
+    since(t_start, "path K")
     run_examples(torch)
     since(t_start, "examples")
 
@@ -3409,7 +3779,22 @@ def main(argv) -> int:
          "launches_tc_j2_prefill": j2["launches_tc"],
          "max_abs_err_j2_prefill": j2["flash_err"],
          "bound_ms_32k": fl["bound_32k"][0],
-         "bound_by_32k": fl["bound_32k"][1]},
+         "bound_by_32k": fl["bound_32k"][1],
+         "launches_k1_prefill": k1["launches"],
+         "launches_tc_k1_prefill": k1["launches_tc"],
+         "launches_noncausal_k1_prefill": k1["launches_noncausal"],
+         "launches_k2_prefill": k2["launches"],
+         "launches_tc_k2_prefill": k2["launches_tc"],
+         **{f"{key}_{site}": r[key] if key != "bound_ms" else r["bound"][0]
+            for site, r in (("k1_encoder", k1["flash"]["encoder"]),
+                            ("k1_decoder", k1["flash"]["decoder"]),
+                            ("k2_decoder", k2["flash"]["decoder"]))
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "tflops")},
+         **{f"max_abs_err_{site}": r["err"]
+            for site, r in (("k1_encoder", k1["flash"]["encoder"]),
+                            ("k1_decoder", k1["flash"]["decoder"]),
+                            ("k2_decoder", k2["flash"]["decoder"]))}},
     ]
     log(f"I (LM training, {E_ARCH}'s widths, {I_LAYERS} layers, "
         f"B={I_BATCH} S={I_SEQ}): {lm['ms_step']:.2f} ms/step, "
@@ -3429,6 +3814,20 @@ def main(argv) -> int:
         f"{j3['tokens_s']:.6g} tokens/s; card vs CPU {j1['cpu_gap']:.3g} / "
         f"{j2['cpu_gap']:.3g}, chunked vs stepwise {j1['step_gap']:.3g}, "
         f"near-ties {j2['near_ties']}")
+    for label, k in (("K1", k1), ("K2", k2)):
+        log(f"{label} ({k_secs:.1f} s for K): prefill "
+            f"{k['prefill_tokens_s']:.6g} tokens/s (warm "
+            f"{k['warm_tokens_s']:.6g}), decode {k['decode_ms']:.4f} "
+            f"ms/token, busy {k['prefill_busy']:.3f} / "
+            f"{k['decode_busy']:.3f}, peak {k['peak_gb']:.2f} GB (init "
+            f"{k['init_peak_gb']:.2f} GB for {k['params_gb']:.2f} GB of "
+            f"params), flash launches {k['launches']} "
+            f"({k['launches_noncausal']} causal=False), card vs CPU "
+            f"{k['cpu_gap']:.3g}, another memory moves the logits "
+            f"{k['other_memory_gap']:.4g}")
+    log(f"K3 ({K_SEAMLESS} training, B={K3_BATCH} S={K3_SEQ}): "
+        f"{k3['ms_step']:.2f} ms/step, {k3['tokens_s']:.6g} tokens/s, busy "
+        f"{k3['busy']:.3f}, peak {k3['peak_gb']:.2f} GB")
     log(f"card: {smi}")       # again, where the output's tail keeps it
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)

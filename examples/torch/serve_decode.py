@@ -2,7 +2,8 @@
 decode — the PyTorch port of ``examples/serve_decode.py``. It shows the
 sub-quadratic decode paths (the mamba2 state, the jamba hybrid, mixtral's
 sliding-window ring buffer) that make long_500k serveable; the
-cross-attention archs raise (ROADMAP item 11e). Runs on the card unless
+cross-attention archs (seamless-m4t-medium, llama-3.2-vision-11b) take
+zero frames or patches, as the JAX example does. Runs on the card unless
 given ``--device cpu``:
 
     PYTHONPATH=src python examples/torch/serve_decode.py \\
@@ -36,7 +37,8 @@ def main(argv=None) -> dict:
     rng = np.random.default_rng(0)
     b, s = args.batch, args.prompt
     batch = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)}
+        rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)).to(dev),
+        **M.zero_memory(cfg, b, dev)}
 
     logits, caches = M.prefill(cfg, params, batch, max_len=s + args.gen)
     tok = torch.argmax(logits, -1).to(torch.int32)

@@ -2,8 +2,9 @@
 (DeepWalk-style) — the PyTorch port of ``examples/train_lm_on_walks.py``:
 the walk engine is the graph-data pipeline, and any ported arch consumes
 it (mamba2 and jamba through the Mamba2 and MoE layers; the
-cross-attention archs raise, ROADMAP item 11e). Uses the reduced (smoke)
-config. Runs on the card unless given ``--device cpu``:
+cross-attention archs with zero frames or patches, as the JAX example
+feeds them). Uses the reduced (smoke) config. Runs on the card unless
+given ``--device cpu``:
 
     PYTHONPATH=src python examples/torch/train_lm_on_walks.py \\
         --arch mamba2-370m [--device cpu]
@@ -46,6 +47,7 @@ def main(argv=None) -> dict:
     opt_state = opt.init(params)
 
     rng = np.random.default_rng(0)
+    extras = M.zero_memory(cfg, 8, dev)
     losses = []
     t0 = time.time()
     for i in range(args.steps):
@@ -53,7 +55,7 @@ def main(argv=None) -> dict:
                                                     8)]).to(dev)
         params, opt_state, loss, _ = lm_train_step(
             cfg, opt, params, opt_state,
-            {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]})
+            {"tokens": seqs[:, :-1], "labels": seqs[:, 1:], **extras})
         losses.append(float(loss))
         if i % 5 == 0 or i == args.steps - 1:
             print(f"step {i:3d}  loss {losses[-1]:.4f}  "

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.graph import FIELDS, PaddedGraph
 from repro_torch.device import resolve_device
+from repro_torch.models.model import encoder_config
 from repro_torch.optim.optimizers import AdamState
 
 
@@ -81,24 +82,31 @@ def _tree(tree, dev: torch.device):
 def lm_params_from_numpy(params: dict, cfg, device=None) -> dict:
     """The JAX LM ``init_params`` pytree (``np.asarray`` of each leaf) ->
     the port's params (tensors of the same dtypes on ``device``). Checks
-    the tree's top level, the table shape and the superblock stacking
-    against ``cfg``."""
-    if set(params) != {"embed", "blocks"}:
-        raise ValueError(f"expected params with 'embed' and 'blocks', got "
-                         f"{sorted(params)}")
+    the tree's top level (``encoder`` with an encoder-decoder config), the
+    table shape and the superblock stacking of ``blocks`` against ``cfg``
+    and of ``encoder`` against ``encoder_config(cfg)``."""
+    stacks = {"blocks": cfg}
+    if cfg.enc_layers:
+        stacks["encoder"] = encoder_config(cfg)
+    if set(params) != {"embed", *stacks}:
+        raise ValueError(f"expected params with 'embed' and "
+                         f"{sorted(stacks)}, got {sorted(params)}")
     tok = np.shape(params["embed"]["tok"])
     if tok != (cfg.vocab, cfg.d_model):
         raise ValueError(f"embedding table {tok} does not fit {cfg.name}: "
                          f"({cfg.vocab}, {cfg.d_model})")
-    want = {f"l{i}" for i in range(len(cfg.superblock()))}
-    if set(params["blocks"]) != want:
-        raise ValueError(f"blocks {sorted(params['blocks'])}, expected "
-                         f"{sorted(want)}")
+    for top, c in stacks.items():
+        want = {f"l{i}" for i in range(len(c.superblock()))}
+        if set(params[top]) != want:
+            raise ValueError(f"{top} {sorted(params[top])}, expected "
+                             f"{sorted(want)}")
     out = _tree(params, resolve_device(device))
-    for name, leaf in _leaves(out["blocks"]):
-        if leaf.shape[0] != cfg.num_superblocks:
-            raise ValueError(f"blocks/{name} stacks {leaf.shape[0]} "
-                             f"superblocks, expected {cfg.num_superblocks}")
+    for top, c in stacks.items():
+        for name, leaf in _leaves(out[top]):
+            if leaf.shape[0] != c.num_superblocks:
+                raise ValueError(f"{top}/{name} stacks {leaf.shape[0]} "
+                                 f"superblocks, expected "
+                                 f"{c.num_superblocks}")
     return out
 
 

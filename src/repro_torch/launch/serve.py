@@ -53,7 +53,8 @@ def main(argv=None):
 
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab, size=(b, s)).astype(np.int32)).to(dev)}
+        rng.integers(0, cfg.vocab, size=(b, s)).astype(np.int32)).to(dev),
+        **M.zero_memory(cfg, b, dev)}
 
     def sample(logits, k):
         if args.temperature <= 0:

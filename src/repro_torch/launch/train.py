@@ -187,12 +187,13 @@ def run_lm(args, cfg: Optional[ModelConfig] = None,
     bsz = args.batch
     # the JAX launcher's draws: a resumed run starts them at the seed again
     rng = np.random.default_rng(args.seed)
+    memory = M.zero_memory(cfg, bsz, dev)
     losses, gnorms, step_end = [], [], []
     t0 = time.time()
     for step in range(start_step, args.steps):
         idx = rng.integers(0, tokens.shape[0], size=bsz)
         seqs = torch.from_numpy(tokens[idx]).to(dev)
-        batch = {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
+        batch = {"tokens": seqs[:, :-1], "labels": seqs[:, 1:], **memory}
         params, opt_state, loss, gnorm = lm_train_step(cfg, opt, params,
                                                        opt_state, batch)
         losses.append(loss)

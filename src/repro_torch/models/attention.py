@@ -1,20 +1,23 @@
-"""GQA self-attention — port of ``repro.models.attention``: training
-(causal, sliding-window or bidirectional, through the plain ``attend``
-under autograd), prefill through the ``flash_attention`` kernel, and
-single-token decode against a KV cache.
+"""GQA attention — port of ``repro.models.attention``: training (causal,
+sliding-window, bidirectional or cross, through the plain ``attend``
+under autograd), prefill through the ``flash_attention`` kernel, the
+encoder's bidirectional self-attention at inference through the same
+kernel (``attn_encode``), and single-token decode against a KV cache.
 
 Training attends in plain torch, as the JAX package does: its
 ``attn_train`` calls the plain ``attend`` (no Pallas kernel, and no
 backward kernel in either package), so autograd of the same ops gives the
-backward. Cache layout: k/v [B, S_max, KV, dh]. Sliding-window archs
+backward. Cross attention (``memory=``, ``memory_kv``, ``cross_decode``)
+is the plain ``attend`` too, as in the JAX package: its q and k have
+different lengths, which the kernel (one S for q and k) does not take.
+Cache layout: k/v [B, S_max, KV, dh]. Sliding-window archs
 (mixtral) keep a ring buffer of ``min(max_len, window)`` slots: prefill
 writes the last ``window`` positions at their slots ``pos % s_cache`` and
 decode writes position ``pos`` at slot ``pos % s_cache``, as the JAX
 package does. Where JAX returns updated copies, the port writes the caches
 in place and returns them. The JAX package's sharding hints
 (``actsharding``, the ``optflags.SEQ_DECODE`` score layout) leave one
-device's arithmetic unchanged and have no counterpart here. Cross-attention
-(``memory=``, ``cross_decode``, ``memory_kv``) belongs to a later slice.
+device's arithmetic unchanged and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -99,20 +102,22 @@ def attn_train(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                positions: torch.Tensor, causal: bool = True,
                window: Optional[int] = None,
                memory: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence self-attention for training: RoPE on q and k, the
-    causal / sliding-window mask (``window`` overrides ``cfg.window``; 0
-    is none), GQA by repeating k/v, the plain ``attend``; differentiable
-    by autograd."""
-    if memory is not None:
-        raise NotImplementedError(
-            "cross-attention (memory=): ROADMAP Queue 1 item 11e (not "
-            "ported yet)")
+    """Full-sequence attention for training: RoPE on q and k, the causal /
+    sliding-window mask (``window`` overrides ``cfg.window``; 0 is none),
+    GQA by repeating k/v, the plain ``attend``; differentiable by
+    autograd. ``memory`` [B, M, D] switches to cross attention: k and v
+    from the memory, no RoPE and no mask."""
     _check_softcap(cfg)
-    q = apply_rope(_project(p, x, "wq"), positions, cfg.rope_theta)
-    k = apply_rope(_project(p, x, "wk"), positions, cfg.rope_theta)
-    v = _project(p, x, "wv")
-    win = cfg.window if window is None else window
-    bias = _mask_bias(x.shape[1], x.shape[1], causal, win, device=x.device)
+    q = _project(p, x, "wq")
+    src = x if memory is None else memory
+    k, v = _project(p, src, "wk"), _project(p, src, "wv")
+    bias = None
+    if memory is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        win = cfg.window if window is None else window
+        bias = _mask_bias(x.shape[1], x.shape[1], causal, win,
+                          device=x.device)
     o = attend(q, _expand_kv(k, cfg.q_per_kv), _expand_kv(v, cfg.q_per_kv),
                bias)
     return _out(p, o)
@@ -192,3 +197,33 @@ def attn_prefill(cfg: ModelConfig, p: Dict, x: torch.Tensor,
         ck[:, :n] = k[:, :n].to(ck.dtype)
         cv[:, :n] = v[:, :n].to(cv.dtype)
     return out, cache
+
+
+def attn_encode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """An encoder layer's bidirectional self-attention at inference: q, k
+    and v as ``prefill_qkv`` makes them, through the ``flash_attention``
+    kernel with ``causal=False`` (its plain version for CPU tensors); no
+    cache. ``attn_train(..., causal=False)`` computes the same."""
+    _check_softcap(cfg)
+    q, k, v = prefill_qkv(cfg, p, x, positions)
+    return _out(p, flash_attention(q, k, v, window=cfg.window, causal=False))
+
+
+def cross_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                 memory_kv: Tuple[torch.Tensor, torch.Tensor]
+                 ) -> torch.Tensor:
+    """Cross attention of x [B, S, D] over k/v [B, M, KV, dh] made from the
+    encoder / vision memory once at prefill (``memory_kv``): no RoPE, no
+    mask, the plain ``attend``."""
+    _check_softcap(cfg)
+    k, v = memory_kv
+    o = attend(_project(p, x, "wq"), _expand_kv(k, cfg.q_per_kv),
+               _expand_kv(v, cfg.q_per_kv), None)
+    return _out(p, o)
+
+
+def memory_kv(cfg: ModelConfig, p: Dict, memory: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k, v [B, M, KV, dh] of a memory [B, M, D], in the memory's dtype."""
+    return _project(p, memory, "wk"), _project(p, memory, "wv")

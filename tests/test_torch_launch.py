@@ -2,11 +2,12 @@
 JAX package's (``repro.launch.train``, in process on one JAX device) on
 the same tiny on-disk edge list: the written ``embeddings.npy`` within
 2e-4, dense, ``--shard-tables`` and ``--concat``; resume from the
-checkpointed rounds as JAX resumes; ``--task lm`` on an architecture
-whose layers are not ported, and a missing card, refused (the LM task
-itself: tests/test_torch_lm_train.py)."""
+checkpointed rounds as JAX resumes; ``--task lm`` on the
+cross-attention archs against the JAX launcher's losses; a missing card
+refused (the LM task itself: tests/test_torch_lm_train.py)."""
 import argparse
 import os
+import re
 import sys
 import tempfile
 
@@ -83,15 +84,32 @@ def test_resume_matches_jax(edgelist, monkeypatch, capsys):
     assert "train[jnp]: 2 rounds" in printed
 
 
-def test_lm_task_is_not_ported(tmp_path):
-    """``--task lm`` runs (item 11b), mamba and MoE archs too (items 11c,
-    11d); an architecture with layers the port does not run yet (cross
-    attention) still raises, naming its item, before any step."""
+def test_lm_task_is_not_ported(tmp_path, monkeypatch, capsys):
+    """``--task lm`` on the cross-attention archs (item 11e, once refused)
+    with the JAX launcher's zero ``frames`` / ``patches``: each step's
+    printed loss and grad norm within 1e-4 of the JAX launcher's (beyond
+    their 4 and 3 printed decimals), and the corpus line equal."""
+    step = re.compile(r"^step\s+(\d+) loss (\S+) gnorm (\S+)", re.M)
     for arch in ("llama-3.2-vision-11b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="item 11e"):
-            launch.main(["--task", "lm", "--arch", arch, "--smoke",
-                         "--device", "cpu", "--ckpt-dir", str(tmp_path)])
-    assert not os.listdir(tmp_path)
+        argv = ["--task", "lm", "--arch", arch, "--smoke", "--steps", "3",
+                "--log-every", "1", "--seq", "32"]
+        capsys.readouterr()
+        run = launch.main(argv + ["--device", "cpu", "--ckpt-dir",
+                                  str(tmp_path / f"port_{arch}")])
+        mine = capsys.readouterr().out
+        monkeypatch.setattr(sys, "argv", ["train"] + argv + [
+            "--ckpt-dir", str(tmp_path / f"jax_{arch}")])
+        jlaunch.main()
+        theirs = capsys.readouterr().out
+        assert re.search(r"corpus: .*", mine).group() == \
+            re.search(r"corpus: .*", theirs).group()
+        want = [(int(i), float(l), float(g))
+                for i, l, g in step.findall(theirs)]
+        assert [i for i, _, _ in want] == [0, 1, 2], arch
+        np.testing.assert_allclose(run["losses"], [l for _, l, _ in want],
+                                   atol=1e-4 + 5e-5, rtol=0, err_msg=arch)
+        np.testing.assert_allclose(run["gnorms"], [g for _, _, g in want],
+                                   atol=1e-4 + 5e-4, rtol=0, err_msg=arch)
 
 
 def test_launcher_needs_a_card_or_the_cpu(edgelist, monkeypatch):

@@ -443,17 +443,51 @@ def test_serve_launcher_temperature_sampling_matches_jax(capsys,
 @pytest.mark.parametrize("entry", ["init_params", "init_caches",
                                    "stack_prefill"])
 def test_unported_layer_kinds_raise(arch, what, entry):
-    """Cross-attention layers (item 11e) are the only kinds left: each
-    entry that builds or runs a layer raises, naming the item."""
-    cfg = tconfigs.smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=f"{what}.*item 11e"):
-        if entry == "init_params":
-            tmodel.init_params(cfg, jr.PRNGKey(0), "cpu")
-        elif entry == "init_caches":
-            ttf.init_caches(cfg, 1, 8, torch.float32, "cpu")
-        else:
-            ttf.stack_prefill(cfg, {}, {}, torch.zeros((1, 4, cfg.d_model)),
-                              torch.arange(4))
+    """The cross-attention layer kinds (item 11e), once refused, now build
+    and run as the JAX package's: ``init_params`` gives JAX's tree (the
+    ``xattn``/``xnorm`` leaves of seamless's decoder and its ``encoder``,
+    llama-vision's cross layer ``l4``) and shapes; ``init_caches`` JAX's
+    leaves, shapes and dtypes (``mk``/``mv`` of the memory's length); and
+    ``stack_prefill`` over seeded memory JAX's output and caches within
+    1e-5."""
+    jcfg, tcfg = _pair(arch)
+    if entry == "init_params":
+        want = dict(_leaves(jax.eval_shape(
+            lambda: jmodel.init_params(jcfg, jax.random.PRNGKey(0)))))
+        got = dict(_leaves(tmodel.init_params(tcfg, jr.PRNGKey(0), "cpu")))
+        assert set(got) == set(want)
+        assert any("xattn" in k or k.startswith("blocks/l4/") for k in got)
+        for name, w in want.items():
+            assert tuple(got[name].shape) == w.shape, name
+        return
+    if entry == "init_caches":
+        want = dict(_leaves(jtf.init_caches(jcfg, 2, 8, jnp.bfloat16)))
+        got = dict(_leaves(ttf.init_caches(tcfg, 2, 8, torch.bfloat16,
+                                           "cpu")))
+        assert set(got) == set(want) and any(k.endswith("/mk") for k in got)
+        for name, w in want.items():
+            assert tuple(got[name].shape) == w.shape, name
+            assert got[name].dtype == torch.bfloat16, name
+        return
+    jp, tp = _params(jcfg, tcfg, seed=2)
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 7, 64)).astype(np.float32)
+    mem = rng.normal(size=(2, 16, 64)).astype(np.float32)
+    jo, jc = jtf.stack_prefill(jcfg, jp["blocks"],
+                               jtf.init_caches(jcfg, 2, 9, jnp.float32),
+                               jnp.asarray(x), jnp.arange(7),
+                               memory=jnp.asarray(mem))
+    to, tc = ttf.stack_prefill(tcfg, tp["blocks"],
+                               ttf.init_caches(tcfg, 2, 9, torch.float32,
+                                               "cpu"),
+                               torch.from_numpy(x), torch.arange(7),
+                               memory=torch.from_numpy(mem))
+    np.testing.assert_allclose(_np(to), np.asarray(jo), atol=1e-5,
+                               rtol=1e-5, err_msg=what)
+    want = dict(_leaves(jax.tree.map(np.asarray, jc)))
+    for name, t in _leaves(tc):
+        np.testing.assert_allclose(_np(t), want[name], atol=1e-5, rtol=1e-5,
+                                   err_msg=name)
 
 
 def test_logit_softcap_raises():

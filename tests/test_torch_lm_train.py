@@ -164,21 +164,47 @@ def test_attn_train_and_grads_match_jax(causal, window):
 
 
 def test_training_refuses_what_is_not_ported():
-    _, tcfg, _, tp = _setup("yi-6b")
-    batch = {k: _t(v) for k, v in _batch(tcfg.vocab).items()}
-    a = {k: v[0] for k, v in tp["blocks"]["l0"]["attn"].items()}
-    x = torch.zeros((1, 4, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 11e"):
-        tattn.attn_train(tcfg, a, x, torch.arange(4), memory=x)
-    for name in ("frames", "patches"):
-        with pytest.raises(NotImplementedError, match="item 11e"):
-            tmodel.loss_fn(tcfg, tp, dict(batch, **{name: x}))
-    with pytest.raises(NotImplementedError, match="item 11e"):
-        ttf.stack_train(tcfg, tp["blocks"], x, torch.arange(4), memory=x)
+    """Cross attention in training (item 11e), once refused, now runs as
+    the JAX package's: ``stack_train(memory=)`` of both cross-attention
+    archs over seeded memory with remat on (the memory an argument of each
+    checkpointed superblock) within 1e-4 of JAX's, and the memory's grad
+    within 1e-4 of JAX's; seamless's ``frames`` reach the encoder's
+    leaves through ``loss_fn`` (non-zero grads), and remat on and off give
+    ``torch.equal`` losses and grads."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, 9, 64)).astype(np.float32)
+    mem = rng.normal(size=(2, 16, 64)).astype(np.float32)
     for arch in ("llama-3.2-vision-11b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="item 11e"):
-            ttf.stack_train(tconfigs.smoke_config(arch), tp["blocks"], x,
-                            torch.arange(4))
+        jcfg, tcfg, jp, tp = _setup(arch)
+        jcfg = dataclasses.replace(jcfg, remat=True)
+        tcfg = dataclasses.replace(tcfg, remat=True)
+
+        def jf(m):
+            return jtf.stack_train(jcfg, jp["blocks"], jnp.asarray(x),
+                                   jnp.arange(9), memory=m)
+        want, jvjp = jax.vjp(jf, jnp.asarray(mem))
+        tm = _t(mem).requires_grad_(True)
+        got = ttf.stack_train(tcfg, tp["blocks"], _t(x), torch.arange(9),
+                              memory=tm)
+        np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-4,
+                                   rtol=1e-4, err_msg=arch)
+        got.backward(_t(np.asarray(want)))
+        np.testing.assert_allclose(_np(tm.grad),
+                                   np.asarray(jvjp(want)[0]), atol=1e-4,
+                                   rtol=1e-4, err_msg=arch)
+    batch = {k: _t(v) for k, v in _batch(tcfg.vocab).items()}
+    batch["frames"] = _t(mem)
+    out = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(tcfg, remat=remat)
+        out[remat] = value_and_grad(
+            lambda p, b: tmodel.loss_fn(cfg, p, b), tp, batch)
+    assert torch.equal(out[False][0], out[True][0])
+    enc = [(path, b) for path, a, b in _pairs(out[False][1], out[True][1])
+           if path.startswith("encoder/")]
+    assert enc and all(bool(b.abs().max() > 0) for _, b in enc)
+    for path, a, b in _pairs(out[False][1], out[True][1]):
+        assert torch.equal(a, b), path
 
 
 @pytest.mark.parametrize("arch", ARCHS)
