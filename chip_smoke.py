@@ -3,7 +3,8 @@
 embedding serving under graph churn, the training launcher on an on-disk
 edge list, the sharded walk backend and tables across a
 ``torch.distributed`` world, LM training, the MoE and Mamba2 layers, cross
-attention and the examples) on one NVIDIA GPU.
+attention, the dry-run against the card and the examples) on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -100,7 +101,7 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    128) with ``WalkPlan(p=1, q=0.5, backend="fused", cap=128)`` and the
    JAX launcher's ``--full`` settings (cache 512, linger 0.2 ms, margin 1
    ms); every bucket (8, 32, 128) warmed for ``embed`` at window 10 and
-   ``rank_neighbors`` at k=10; ``synthetic_trace(n, 5_000, alpha=1.2,
+   ``rank_neighbors`` at k=10; ``synthetic_trace(n, 3_000, alpha=1.2,
    rank_share=0.5, qps=20_000, deadline_s=0.05, seed=0)`` replayed against
    the real clock with window 10 and k 10, and between its halves
    ``zipf_churn(g, 4, 1024, seed=7)`` then one ``weight_churn`` batch of
@@ -230,7 +231,27 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    grad norms finite, every encoder leaf's first AdamW moment non-zero
    after step 1, none of the four kernels launched; ms/step, tokens/s,
    peak memory and a profile;
-14. the examples — ``examples/torch/{quickstart,classify_nodes,
+14. path L — the dry-run (``repro_torch.launch.dryrun``) held against
+   the card, right after path K. L1: ``lower_cell`` at mesh 1x1 of the
+   runs paths E (prefill), I (a training step), J2 and K2 (prefill) made,
+   at their config cuts, batches and seqs: counted FLOPs over 989 TFLOP/s
+   and ``analytic_bytes`` over 3.35 TB/s, the larger over the path's
+   measured time (warm prefills, I's median step) must lie in (0, 1.05],
+   and ``resident_bytes`` must not pass the path's peak memory; no model
+   runs there. L2: jamba-v0.1-52b at published widths cut to one
+   superblock (8 of 32 layers: 1 attention, 7 Mamba2, 4 MoE of 16
+   experts x 14,336), bf16 params drawn on the card through the chunked
+   draws, the init peak at most the params' bytes plus the largest
+   leaf's float32 bytes plus 1 GB; one prefill of B=1 x S=4,096 of path
+   A's walks and 8 greedy steps with every count set to 0 just before:
+   ``flash_attention`` once at prefill on the tensor-core route and
+   never at decode, logits finite, the kernel on the attention layer's
+   own q, k, v within path E's tolerance of its plain version, the
+   dry-run's ``resident_bytes`` within the measured peak. L3, run beside
+   the examples so that its host load times nothing: ``python -m
+   repro_torch.launch.dryrun --arch yi-6b --shape train_4k`` with no card
+   visible exits 0 and writes its pod16x16 artifact;
+15. the examples — ``examples/torch/{quickstart,classify_nodes,
    serve_embeddings,distributed_walks,train_lm_on_walks,
    serve_decode}.py`` on the card in subprocesses started together
    (``distributed_walks.py`` at world 1), ``train_lm_on_walks.py
@@ -242,7 +263,8 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
 It prints the card's name and power limit, the build seconds, the
 registers and spills of the walk kernels and the tensor-core kernel,
 walker-steps per second for each walk phase, prefill tokens/s and decode
-ms/token (paths E, J and K), path J's dropped assignments, path F's
+ms/token (paths E, J, K and L), path L's shares and peaks, path J's
+dropped assignments, path F's
 latency quantiles, QPS, hit rate, occupancy, refresh
 host ms and device-busy share, LM training's ms/step, tokens/s, peak
 memory and busy share, a ``{"kernels": [...]}`` line, and last
@@ -345,6 +367,11 @@ K_VISION, K_VISION_LAYERS = "llama-3.2-vision-11b", 5   # K2: 40 -> 5
 K_CPU_LAYERS, K_CPU_SEQ = 2, 256       # K1: card vs CPU, 2 + 2 layers, f32
 K3_BATCH, K3_SEQ, K3_STEPS = 8, 256, 5
 K_PROFILE_STEPS = 8
+L_ARCH = "jamba-v0.1-52b"       # L2: published widths, one superblock
+L_SEQ, L_GEN = 4096, 8          # L2: B=1 prefill, then 8 greedy steps
+L_SHARE_MAX = 1.05              # L1: max(t_compute, t_memory) / measured
+L_INIT_SLACK = 1e9              # L2: init peak - params - largest f32 leaf
+L_CELL = ("yi-6b", "train_4k")  # L3: one production cell, no device
 # (script, arguments; None: a checkpoint dir of the phase's own), each on
 # the card in its own process
 EXAMPLES = (("quickstart", []), ("classify_nodes", []),
@@ -355,9 +382,9 @@ EXAMPLES = (("quickstart", []), ("classify_nodes", []),
             ("serve_decode", []),
             ("serve_decode", ["--arch", "seamless-m4t-medium"]))
 EXAMPLES_WAIT_S = 300
-F_REQUESTS = 4_000              # serve_graph --full replays 50,000
+F_REQUESTS = 3_000              # serve_graph --full replays 50,000
 F_WINDOW, F_K = 10, 10
-F_PROFILED = 2_000              # requests of path F traced for busy share
+F_PROFILED = 1_500              # requests of path F traced for busy share
 F_SAMPLE = 4_096                # gate (a)'s walkers beside the buckets
 F_EMBED_TOL = 1e-6              # served embed vs plain: reductions only
 F_SMALL_SPEC = "wec:k=13,deg=100,seed=0"
@@ -2052,8 +2079,11 @@ def path_e(np, torch, walks, one, dev="cuda"):
         f"s host")
     tokens = torch.from_numpy(walks_to_lm_tokens(
         walks % cfg.vocab, E_SEQ)[:E_BATCH]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     logits, toks, t_pre, t_dec, launches, dec_launches, _ = serve(
         torch, M, cfg, params, tokens, E_GEN + 1)
+    peak = torch.cuda.max_memory_allocated()
     n = cfg.num_layers
     if (launches, dec_launches) != ((n, n, 0), (0, 0, 0)):
         raise AssertionError(f"E: flash_attention launched (total, "
@@ -2186,6 +2216,7 @@ def path_e(np, torch, walks, one, dev="cuda"):
     card_vs_cpu(torch, M, cfg32, params, prompt, "E")
     del params
     r["launches_tc"], r["launches_simt"] = by_route
+    r["warm_s"], r["peak_bytes"] = warm, peak
     return launches, max(err, err_long), r
 
 
@@ -2321,7 +2352,8 @@ def path_i(np, torch, walks) -> dict:
         run = LT.run_lm(lm_args(torch, I_WORK, I_STEPS), cfg, tokens)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        r["peak_gb"] = r["peak_bytes"] / 1e9
     finally:
         shutil.rmtree(I_WORK, ignore_errors=True)
     losses = run["losses"]
@@ -2608,9 +2640,10 @@ def path_j2(np, torch, K, S, FA, walks) -> dict:
                              f"(0, 0, 0)")
     caps = sorted({MOE.capacity(cfg, tg) for _, _, _, tg, _ in seen})
     r = {"prefill_tokens_s": J_BATCH * J_SEQ / out[2],
-         "warm_tokens_s": J_BATCH * J_SEQ / warm,
+         "warm_tokens_s": J_BATCH * J_SEQ / warm, "warm_s": warm,
          "decode_ms": out[3] / J_GEN * 1e3,
          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "peak_bytes": torch.cuda.max_memory_allocated(),
          "launches": out[4][0], "launches_tc": out[4][1],
          "drop_prefill": drop_shares(seen[:n], n),
          "drop_decode": drop_shares(seen[n:n * (J_GEN + 1)], n)}
@@ -2925,9 +2958,10 @@ def path_k_serve(np, torch, K, S, FA, walks, arch: str, layers=None,
                              f"(0, 0, 0), {(n, n, 0)} ({enc}), (0, 0, 0), "
                              f"{2 * n}")
     r.update({"prefill_tokens_s": J_BATCH * J_SEQ / out[2],
-              "warm_tokens_s": J_BATCH * J_SEQ / warm,
+              "warm_tokens_s": J_BATCH * J_SEQ / warm, "warm_s": warm,
               "decode_ms": out[3] / J_GEN * 1e3,
               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "peak_bytes": torch.cuda.max_memory_allocated(),
               "launches": out[4][0], "launches_tc": out[4][1],
               "launches_noncausal": noncausal})
     logits, toks, caches = out[0], out[1], out[6]
@@ -3075,6 +3109,222 @@ def path_k3(np, torch, K, S, FA, walks) -> dict:
     del params, state
     torch.cuda.empty_cache()
     return r
+
+
+def l1_share(torch, label: str, cfg, kind: str, seq: int, batch: int,
+             measured_s: float, peak_bytes: int) -> dict:
+    """One L1 reading: ``lower_cell`` of the run a path already made (its
+    config cut, batch and seq, mesh 1x1) beside that run's time and peak:
+    t_compute = counted FLOPs over 989 TFLOP/s, t_memory = ``analytic_bytes``
+    (flash's term dropped at prefill) over 3.35 TB/s; the share =
+    max(t_compute, t_memory) / measured must lie in (0, L_SHARE_MAX], and
+    ``resident_bytes`` (a floor) must not pass the measured peak."""
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.roofline import analysis as roof
+    from repro_torch.roofline import traffic
+    cell = lower_cell(cfg, kind, seq, batch, make_test_mesh(1, 1), 1)
+    nbytes = traffic.analytic_bytes(cfg, kind, seq, batch,
+                                    {"data": 1, "model": 1},
+                                    flash_attention=kind == "prefill")
+    r = {"flops": cell["flops"],
+         "model_flops": roof.model_flops_for(cfg, kind, seq, batch),
+         "t_compute": cell["flops"] / roof.PEAK_FLOPS,
+         "t_memory": nbytes["total"] / roof.HBM_BW,
+         "measured_s": measured_s, "resident_bytes": cell["resident_bytes"],
+         "peak_bytes": peak_bytes, "count_s": cell["seconds"]}
+    r["share"] = max(r["t_compute"], r["t_memory"]) / measured_s
+    # the same with 6ND/2ND, fixed by the config: the counted FLOPs are the
+    # port's own work (remat's recompute, MoE capacity slots, training's
+    # masked S^2 pairs) and move with the implementation
+    r["model_share"] = max(r["model_flops"] / roof.PEAK_FLOPS,
+                           r["t_memory"]) / measured_s
+    log(f"L1 {label}: {cfg.name} {kind} B={batch} S={seq} "
+        f"({cfg.num_layers} layers): counted {r['flops']:.6g} FLOPs "
+        f"(6ND/2ND {r['model_flops']:.6g}; on meta in {r['count_s']:.2f} "
+        f"s), t_compute {r['t_compute'] * 1e3:.4f} ms at 989 TFLOP/s, "
+        f"t_memory {r['t_memory'] * 1e3:.4f} ms ({nbytes['total']:.6g} "
+        f"bytes at 3.35 TB/s), measured {measured_s * 1e3:.4f} ms: share "
+        f"{r['share']:.4f} (with 6ND/2ND {r['model_share']:.4f}); resident "
+        f"{r['resident_bytes'] / 1e9:.3f} GB vs measured peak "
+        f"{peak_bytes / 1e9:.3f} GB")
+    if not 0 < r["share"] <= L_SHARE_MAX:
+        raise AssertionError(f"L1 {label}: share {r['share']} outside (0, "
+                             f"{L_SHARE_MAX}]: a miscount")
+    if r["resident_bytes"] > peak_bytes:
+        raise AssertionError(f"L1 {label}: resident {r['resident_bytes']} "
+                             f"bytes above the measured peak {peak_bytes}")
+    return r
+
+
+def path_l1(torch, e: dict, lm: dict, j2: dict, k2: dict) -> dict:
+    """L1: the dry-run of the runs paths E (prefill), I (training step), J2
+    and K2 (prefill) made, at their own config cuts, batches and seqs,
+    against their measured times (warm prefills, I's median step) and
+    peaks. No model runs here."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    def cut(arch, layers):
+        return dataclasses.replace(get_config(arch), num_layers=layers)
+    return {
+        "E": l1_share(torch, "E", cut(E_ARCH, E_LAYERS), "prefill", E_SEQ,
+                      E_BATCH, e["warm_s"], e["peak_bytes"]),
+        "I": l1_share(torch, "I", cut(E_ARCH, I_LAYERS), "train", I_SEQ,
+                      I_BATCH, lm["ms_step"] / 1e3, lm["peak_bytes"]),
+        "J2": l1_share(torch, "J2", cut(J_MOE, J_MOE_LAYERS), "prefill",
+                       J_SEQ, J_BATCH, j2["warm_s"], j2["peak_bytes"]),
+        "K2": l1_share(torch, "K2", cut(K_VISION, K_VISION_LAYERS),
+                       "prefill", J_SEQ, J_BATCH, k2["warm_s"],
+                       k2["peak_bytes"])}
+
+
+def path_l2(np, torch, K, S, FA, walks) -> dict:
+    """L2: jamba-v0.1-52b at published widths cut to one superblock (8 of
+    32 layers: 1 attention, 7 Mamba2, 4 MoE of 16 x 14,336), bf16 params
+    drawn on the card in chunks; its init peak within the params' bytes
+    plus the largest leaf's float32 bytes plus 1 GB; one prefill of B=1 x
+    S=4,096 and 8 greedy steps with every count set to 0 just before
+    (flash once at prefill, tensor-core, never at decode); flash held to
+    its plain version on the attention layer's own q, k, v; the dry-run's
+    ``resident_bytes`` within the measured peak."""
+    import dataclasses
+    from repro_torch import random as jr
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import walks_to_lm_tokens
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as M
+    full = get_config(L_ARCH)
+    cfg = dataclasses.replace(full, num_layers=len(full.superblock()),
+                              param_dtype="bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, jr.PRNGKey(0), DEV)
+    torch.cuda.synchronize()
+    leaves = _leaves(params)
+    r = {"init_s": time.perf_counter() - t0,
+         "init_peak": torch.cuda.max_memory_allocated() - base,
+         "params_bytes": sum(v.numel() * v.element_size() for v in leaves),
+         "largest_f32": max(v.numel() for v in leaves) * 4}
+    limit = r["params_bytes"] + r["largest_f32"] + L_INIT_SLACK
+    log(f"L2: {cfg.name} d_model={cfg.d_model} layers={cfg.num_layers} "
+        f"(of {full.num_layers}; {cfg.param_count():,} params, bf16 "
+        f"{r['params_bytes'] / 1e9:.3f} GB) experts={cfg.moe_experts} "
+        f"d_ff={cfg.d_ff} ssm_state={cfg.ssm_state} initialised on the "
+        f"card in {r['init_s']:.2f} s host; init peak "
+        f"{r['init_peak'] / 1e9:.3f} GB (limit: params + largest leaf "
+        f"{r['largest_f32'] / 1e9:.3f} GB f32 + 1 GB = {limit / 1e9:.3f})")
+    if r["init_peak"] > limit:
+        raise AssertionError(f"L2: init peak {r['init_peak']} above "
+                             f"{limit}")
+    tokens = torch.from_numpy(walks_to_lm_tokens(
+        walks % cfg.vocab, L_SEQ)[:1]).to(DEV)
+    orig, qkv = FA.launch, []
+
+    def keep(which, q, k, v, window=0, causal=True):
+        if not qkv:
+            qkv.append((q.clone(), k.clone(), v.clone(), window, causal))
+        return orig(which, q, k, v, window, causal)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(K, S, FA)
+    FA.launch = keep
+    try:
+        logits, toks, t_pre, t_dec, at_prefill, at_decode, caches = serve(
+            torch, M, cfg, params, tokens, L_GEN + 1)
+    finally:
+        FA.launch = orig
+    others = kernel_counts(K, S, FA)[:3]
+    r.update({"peak_bytes": torch.cuda.max_memory_allocated(),
+              "prefill_tokens_s": L_SEQ / t_pre,
+              "decode_ms": t_dec / L_GEN * 1e3,
+              "launches": at_prefill[0], "launches_tc": at_prefill[1]})
+    del caches
+    if others != (0, 0, 0) or at_prefill != (1, 1, 0) or \
+            at_decode != (0, 0, 0):
+        raise AssertionError(f"L2: launches (step, walk, sgns) {others}, "
+                             f"flash {at_prefill} at prefill and "
+                             f"{at_decode} at decode; want (0, 0, 0), "
+                             f"(1, 1, 0), (0, 0, 0)")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("L2: non-finite logits")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    M.prefill(cfg, params, {"tokens": tokens}, max_len=L_SEQ + L_GEN + 1)
+    torch.cuda.synchronize()
+    r["warm_s"] = time.perf_counter() - t0
+    q, k, v, window, causal = qkv.pop()
+    r["flash_err"] = flash_compare(torch, FA, q, k, v, window, causal,
+                                   "L2 attention layer",
+                                   E_FLASH_TOL["bfloat16"])
+    del q, k, v
+    cell = lower_cell(cfg, "prefill", L_SEQ, 1, make_test_mesh(1, 1), 1)
+    r["resident_bytes"] = cell["resident_bytes"]
+    log(f"L2: prefill B=1 S={L_SEQ}: {t_pre:.4f} s = "
+        f"{r['prefill_tokens_s']:.6g} tokens/s (a second, warm prefill "
+        f"{r['warm_s']:.4f} s; counted {cell['flops']:.6g} FLOPs = "
+        f"{cell['flops'] / 989e12 * 1e3:.4f} ms at 989 TFLOP/s); decode "
+        f"{L_GEN} steps: "
+        f"{r['decode_ms']:.4f} ms/token; flash (total, tensor-core, SIMT) "
+        f"{at_prefill} at prefill, {at_decode} at decode; the attention "
+        f"layer's q, k, v through the kernel vs its plain version: max "
+        f"|diff| {r['flash_err']:.3g} (atol, rtol "
+        f"{E_FLASH_TOL['bfloat16']}); peak {r['peak_bytes'] / 1e9:.3f} GB, "
+        f"dry-run resident {r['resident_bytes'] / 1e9:.3f} GB; tokens "
+        f"{toks[0].tolist()}")
+    if r["resident_bytes"] > r["peak_bytes"]:
+        raise AssertionError(f"L2: resident {r['resident_bytes']} above the "
+                             f"measured peak {r['peak_bytes']}")
+    del params, logits
+    torch.cuda.empty_cache()
+    return r
+
+
+def start_l3():
+    """L3's process: ``python -m repro_torch.launch.dryrun --arch yi-6b
+    --shape train_4k`` with no card visible, started beside the examples
+    (it runs on the host's cores alone)."""
+    arch, shape = L_CELL
+    art = ROOT / "experiments" / "dryrun_torch" / \
+        f"{arch}__{shape}__pod16x16.json"
+    art.unlink(missing_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "repro_torch.launch.dryrun", "--arch", arch,
+                             "--shape", shape], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    CHILDREN.append(proc)
+    return proc, art, time.perf_counter()
+
+
+def path_l3(started) -> dict:
+    """L3: the process ``start_l3`` started exits 0 and leaves an ``ok``
+    artifact at pod16x16."""
+    proc, art, t0 = started
+    _, err = proc.communicate(timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0 or not art.is_file():
+        raise AssertionError(f"L3: the dry-run exited {proc.returncode}: "
+                             f"{err[-2000:]}")
+    a = json.loads(art.read_text())
+    if a["status"] != "ok" or a["mesh"] != "pod16x16" or a["chips"] != 256:
+        raise AssertionError(f"L3: artifact {a}")
+    log(f"L3: {L_CELL[0]} {L_CELL[1]} at pod16x16 with no card visible: "
+        f"the cell counted in {a['total_seconds']:.2f} s (its artifact's "
+        f"total_seconds, beside the examples; the process ended within "
+        f"{secs:.2f} s of its start, read once the examples ended), resident "
+        f"{a['memory']['resident_bytes'] / 1e9:.4f} GB a card, t_compute "
+        f"{a['t_compute']:.4e} s, t_memory {a['t_memory']:.4e} s, "
+        f"bottleneck {a['bottleneck']}, useful ratio "
+        f"{a['useful_ratio']:.4f}")
+    return {"seconds": a["total_seconds"],
+            "resident_bytes": a["memory"]["resident_bytes"],
+            "bottleneck": a["bottleneck"]}
 
 
 def run_examples(torch) -> None:
@@ -3696,10 +3946,22 @@ def main(argv) -> int:
     k_secs = time.perf_counter() - t_k
     flash_err = max(flash_err, *(r["err"] for k in (k1, k2)
                                  for r in k["flash"].values()))
-    del lm_walks
     since(t_start, "path K")
+
+    # ---- path L: the dry-run against the card; jamba's superblock ------
+    t_l = time.perf_counter()
+    l1 = path_l1(torch, fl, lm, j2, k2)
+    l2 = path_l2(np, torch, K, S, FA, lm_walks)
+    l_secs = time.perf_counter() - t_l
+    flash_err = max(flash_err, l2["flash_err"])
+    del lm_walks
+    since(t_start, "path L1, L2")
+    # L3 runs on the host's cores beside the examples, never beside a
+    # timed path: its load would move L2's host-bound init and decode
+    l3_run = start_l3()
     run_examples(torch)
-    since(t_start, "examples")
+    l3 = path_l3(l3_run)
+    since(t_start, "examples, path L3")
 
     # ---- path F: embedding serving with churn, step kernel per superstep
     f = path_f(np, torch, K, store_a, table_c)
@@ -3785,6 +4047,9 @@ def main(argv) -> int:
          "launches_noncausal_k1_prefill": k1["launches_noncausal"],
          "launches_k2_prefill": k2["launches"],
          "launches_tc_k2_prefill": k2["launches_tc"],
+         "launches_l2_prefill": l2["launches"],
+         "launches_tc_l2_prefill": l2["launches_tc"],
+         "max_abs_err_l2_prefill": l2["flash_err"],
          **{f"{key}_{site}": r[key] if key != "bound_ms" else r["bound"][0]
             for site, r in (("k1_encoder", k1["flash"]["encoder"]),
                             ("k1_decoder", k1["flash"]["decoder"]),
@@ -3828,6 +4093,15 @@ def main(argv) -> int:
     log(f"K3 ({K_SEAMLESS} training, B={K3_BATCH} S={K3_SEQ}): "
         f"{k3['ms_step']:.2f} ms/step, {k3['tokens_s']:.6g} tokens/s, busy "
         f"{k3['busy']:.3f}, peak {k3['peak_gb']:.2f} GB")
+    log(f"L1, L2 ({l_secs:.1f} s): shares " + ", ".join(
+        f"{k} {v['share']:.4f} (resident {v['resident_bytes'] / 1e9:.3f} / "
+        f"peak {v['peak_bytes'] / 1e9:.3f} GB)" for k, v in l1.items())
+        + f"; L2 jamba superblock init peak {l2['init_peak'] / 1e9:.3f} GB "
+        f"for {l2['params_bytes'] / 1e9:.3f} GB of bf16 params, prefill "
+        f"{l2['prefill_tokens_s']:.6g} tokens/s, decode "
+        f"{l2['decode_ms']:.4f} ms/token, peak {l2['peak_bytes'] / 1e9:.3f} "
+        f"GB vs resident {l2['resident_bytes'] / 1e9:.3f}; L3 "
+        f"{l3['seconds']:.2f} s beside the examples, {l3['bottleneck']}")
     log(f"card: {smi}")       # again, where the output's tail keeps it
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)

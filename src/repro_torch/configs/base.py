@@ -16,6 +16,15 @@ SHAPES: Dict[str, dict] = {
 }
 
 
+def shape_applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
+    """long_500k needs a sub-quadratic decode path (ssm/hybrid/SWA);
+    full-attention archs skip it."""
+    if shape == "long_500k" and not cfg.subquadratic:
+        return False, ("full quadratic attention: 512k-token KV decode is "
+                       "intentionally skipped (DESIGN.md §5)")
+    return True, ""
+
+
 def smoke_reduce(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests: identical block
     pattern, tiny widths."""

@@ -22,6 +22,11 @@ the world.
 ``engine.update(deltas)`` applies edge deltas through the engine's
 GraphStore and splices only the affected rows into a new device layout
 (``repro_torch.engine.update``); runs already enqueued keep the old one.
+
+``engine.analyze(num_walkers)`` (sharded backend) and
+:func:`analyze_sharded` (any ``ShardedGraph``, its arrays possibly on
+``meta``, up to hundreds of shards, no world needed) give a sharded walk's
+roofline terms per superstep and device, analytically.
 """
 from __future__ import annotations
 
@@ -42,13 +47,90 @@ from repro_torch.engine.plan import WalkPlan, WalkResult, WalkStats
 from repro_torch.engine.update import (UpdateReport, patch_padded,
                                        patch_sharded)
 from repro_torch.launch.mesh import RwMesh, make_rw_mesh
-from repro_torch.roofline.traffic import (walk_auto_capacity,
-                                          walk_overlap_model)
+from repro_torch.roofline.traffic import (H100_F32_FLOPS, H100_NVLINK_BW,
+                                          walk_auto_capacity,
+                                          walk_collective_bytes,
+                                          walk_exchange_bytes,
+                                          walk_overlap_model,
+                                          walk_step_flops)
 
 
 def round_seed(seed: int, r: int) -> int:
     """Per-round seed for FN-Multi rounds (as in the JAX package)."""
     return seed * 1000003 + r
+
+
+def _overlap(g: ShardedGraph, plan: WalkPlan, capacity: int,
+             walkers: int) -> dict:
+    """Analytic total and exposed exchange bytes of a run of ``walkers``
+    walkers (``roofline.traffic.walk_overlap_model``)."""
+    width = g.cap if plan.sampler().mode == "approx_always" else g.hot_cap
+    return walk_overlap_model(
+        g.num_shards, capacity, g.cap, plan.length,
+        walkers_per_shard=max(walkers // g.num_shards, 1),
+        pipeline=plan.pipeline and plan.length >= 2,
+        w_bytes=g.wgt.element_size(), width=width)
+
+
+def _collective_estimate(g: ShardedGraph, plan: WalkPlan,
+                         capacity: int) -> int:
+    """Per-device exchange bytes of one barrier-mode run of ``plan``."""
+    return walk_collective_bytes(g.num_shards, capacity, g.cap, plan.length,
+                                 w_bytes=g.wgt.element_size())
+
+
+def analyze_sharded(g: ShardedGraph, plan: WalkPlan, capacity: int,
+                    num_walkers: Optional[int] = None) -> dict:
+    """Roofline terms of the sharded walk of ``plan`` on ``g``, per
+    superstep and device, from shapes alone: ``g``'s arrays may be
+    ``meta`` tensors and ``g.num_shards`` any size (no world is needed).
+    ``capacity`` is the exchange's request slots per destination, as
+    ``WalkEngine.build`` settles it.
+
+    The keys are those of the JAX package's ``WalkEngine.analyze``. There,
+    ``flops_per_step_per_dev`` and ``coll_bytes_per_step_per_dev`` are read
+    from the compiled program (``cost_analysis`` and the optimized HLO's
+    collectives); here they are ``traffic.walk_step_flops`` of a shard's
+    walkers at the draw's width and one superstep's
+    ``traffic.walk_exchange_bytes``. ``graph_bytes_per_dev``,
+    ``analytic_coll_bytes_per_dev``, ``capacity``, ``walkers_per_shard``
+    and ``overlap_*`` are computed as JAX computes them. Nothing compiles:
+    ``compile_seconds`` and ``argument_bytes_per_dev`` are None. The times
+    divide by one H100's float32 rate and NVLink rate
+    (``roofline.traffic``)."""
+    if num_walkers is None:
+        num_walkers = g.n
+    mode = plan.sampler().mode
+    width = g.cap if mode == "approx_always" else g.hot_cap
+    w_bytes = g.wgt.element_size()
+    walkers_per_shard = num_walkers // g.num_shards
+    flops_step = walk_step_flops(walkers_per_shard, width)
+    coll = float(walk_exchange_bytes(g.num_shards, capacity, g.cap, w_bytes))
+    graph_bytes = sum(t.numel() * t.element_size() for t in (
+        g.adj, g.wgt, g.alias_p, g.alias_i, g.hot_ids, g.hot_adj, g.hot_wgt,
+        g.hot_alias_p, g.hot_alias_i, g.hot_deg, g.hot_wmin, g.hot_wmax))
+    overlap = _overlap(g, plan, capacity, num_walkers)
+    return {
+        "backend": plan.backend, "mode": plan.mode,
+        "pipeline": plan.pipeline,
+        "overlap_total_bytes": overlap["total_bytes"],
+        "overlap_exposed_bytes": overlap["exposed_bytes"],
+        "overlap_efficiency": overlap["efficiency"],
+        "cap": g.cap, "hot_cap": g.hot_cap, "capacity": capacity,
+        "shards": g.num_shards, "n": g.n,
+        "walkers_per_shard": walkers_per_shard,
+        "compile_seconds": None,
+        "flops_per_step_per_dev": flops_step,
+        "coll_bytes_per_step_per_dev": coll,
+        "coll_by_op_per_step": {"all-to-all": coll},
+        "coll_counts": None,
+        "t_compute": flops_step / H100_F32_FLOPS,
+        "t_collective": coll / H100_NVLINK_BW,
+        "analytic_coll_bytes_per_dev": _collective_estimate(g, plan,
+                                                            capacity),
+        "graph_bytes_per_dev": int(graph_bytes),
+        "argument_bytes_per_dev": None,
+    }
 
 
 class WalkEngine:
@@ -246,16 +328,17 @@ class WalkEngine:
     def _overlap_estimate(self, walkers: int) -> dict:
         """Analytic total and exposed exchange bytes of a run of
         ``walkers`` walkers (``roofline.traffic.walk_overlap_model``)."""
-        g = self.sg
-        if g is None:
+        if self.sg is None:
             return {"total_bytes": 0, "exposed_bytes": 0, "efficiency": 0.0}
-        width = g.cap if self._sampler.mode == "approx_always" \
-            else g.hot_cap
-        return walk_overlap_model(
-            g.num_shards, self.capacity, g.cap, self.plan.length,
-            walkers_per_shard=max(walkers // g.num_shards, 1),
-            pipeline=self.plan.pipeline and self.plan.length >= 2,
-            w_bytes=g.wgt.element_size(), width=width)
+        return _overlap(self.sg, self.plan, self.capacity, walkers)
+
+    def analyze(self, num_walkers: Optional[int] = None) -> dict:
+        """:func:`analyze_sharded` of this engine's layout, plan and
+        capacity; the sharded backend only, as JAX's."""
+        if self.sg is None:
+            raise ValueError("analyze() requires the sharded backend")
+        return analyze_sharded(self.sg, self.plan, self.capacity,
+                               num_walkers)
 
     def run(self, starts=None, seed: int = 0, walker_ids=None) -> WalkResult:
         """Walk ``starts`` (default: every vertex) with the bound plan."""

@@ -14,9 +14,15 @@ multiple of 16 takes the tensor-core kernel (``"tc"``: wgmma fed by TMA,
 the float32 weights entering the P.V product as bf16 hi and lo parts),
 everything else the float32 SIMT kernel (``"simt"``: float32 arithmetic
 throughout). A CPU
-tensor runs the plain version beside them (:func:`flash_attention_plain`),
-anything else raises. Launches are counted in ``flash_attention.launches``
-and, by route, in ``flash_attention.launches_tc`` and
+tensor runs the plain version beside them (:func:`flash_attention_plain`).
+A ``meta`` tensor (the dry-run's abstract step) goes to
+``torch.ops.repro_torch.flash_attention_meta``, an op with a fake
+implementation alone, whose ``torch.utils.flop_counter`` formula counts
+the kernel's own work: 4·dh FLOPs for each visible (query, key) pair
+(:func:`visible_pairs`), where the plain version's S² would count masked
+pairs too. Nothing launches there and no count moves. Anything else
+raises. Launches are counted in ``flash_attention.launches`` and, by
+route, in ``flash_attention.launches_tc`` and
 ``flash_attention.launches_simt``.
 """
 from __future__ import annotations
@@ -25,6 +31,7 @@ import ctypes
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 NEG_INF = -1e30
 MAX_DH = 256                     # the widest head either kernel takes
@@ -74,6 +81,45 @@ def visible(s: int, window: int = 0, causal: bool = True,
     if window:
         ok &= kpos > qpos - window
     return ok
+
+
+def visible_pairs(s: int, window: int = 0, causal: bool = True) -> int:
+    """The (query, key) pairs of one head that :func:`visible` keeps:
+    ``s (s + 1) / 2`` causal, ``s²`` bidirectional, fewer in a window."""
+    if causal:
+        if window and s > window:
+            return window * (window + 1) // 2 + (s - window) * window
+        return s * (s + 1) // 2
+    if window and s > window:
+        return s * s - (s - window) * (s - window + 1) // 2
+    return s * s
+
+
+def flash_flops(b: int, s: int, h: int, dh: int, window: int = 0,
+                causal: bool = True) -> int:
+    """The kernel's work: 4·dh FLOPs (the q·k and p·v products) for each
+    visible pair of each of the ``b·h`` heads."""
+    return 4 * b * h * dh * visible_pairs(s, window, causal)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_meta",
+                         mutates_args=())
+def _flash_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                window: int, causal: bool) -> torch.Tensor:
+    raise RuntimeError("flash_attention_meta has no values: it runs on "
+                       "meta tensors only")
+
+
+@_flash_meta.register_fake
+def _(q, k, v, window, causal):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_meta)
+def _flash_meta_flops(q_shape, k_shape, v_shape, window, causal,
+                      out_shape=None, **kwargs) -> int:
+    b, s, h, dh = q_shape
+    return flash_flops(b, s, h, dh, window, causal)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -133,6 +179,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, window, causal)
+    if dev.type == "meta":
+        return torch.ops.repro_torch.flash_attention_meta(q, k, v, window,
+                                                          causal)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
     return launch(route(q.dtype, q.shape[3]), q, k, v, window, causal)

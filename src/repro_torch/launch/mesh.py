@@ -22,9 +22,10 @@ the identity (JAX's one-device mesh).
 A world of two ranks on one card cannot use NCCL ("Duplicate GPU
 detected"); it runs on gloo, one rank per card on NCCL.
 
-JAX's ``make_production_mesh`` / ``make_test_mesh`` shape TPU pods into
-``data x model`` meshes for the LM trainer; they are not carried
-(ROADMAP item 12).
+The LM dry-run's meshes (``make_production_mesh``, ``make_test_mesh``)
+are shapes alone: a :class:`MeshShape` names its axes and their sizes, as
+``jax.sharding.Mesh.shape`` does, and touches no device and no process
+group. ``launch.sharding`` reads nothing else of a mesh.
 """
 from __future__ import annotations
 
@@ -35,6 +36,46 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A device mesh's shape alone: axis names in order and their sizes.
+    ``shape`` is ``{name: size}`` as ``jax.sharding.Mesh.shape``; ``size``
+    counts the devices."""
+    axis_names: tuple
+    axis_sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for d in self.axis_sizes:
+            n *= d
+        return n
+
+    @property
+    def name(self) -> str:
+        """``pod16x16`` / ``pod2x16x16`` for the production meshes."""
+        return "pod" + "x".join(str(d) for d in self.axis_sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """Production mesh: 16x16 = 256 devices a pod; multi-pod adds a 2-pod
+    axis (``pod``, ``data``, ``model``)."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def make_test_mesh(data: int = 2, model: int = 2, pod: int = 0) -> MeshShape:
+    """A small mesh shape; ``pod`` adds a leading pod axis."""
+    if pod:
+        return MeshShape(("pod", "data", "model"), (pod, data, model))
+    return MeshShape(("data", "model"), (data, model))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,7 +15,9 @@ written in place. Training is differentiable by autograd
 self-attention, the encoder's bidirectional one among it, goes through
 the ``flash_attention`` kernel on the card; cross attention, mamba and
 MoE layers are plain torch, as in the JAX package (no Pallas kernel
-there), and the MoE layers route all B*S tokens as one group.
+there). ``num_groups`` splits the B*S tokens into that many MoE routing
+groups, as JAX's (its dry-run sets it to the batch's sharding factor);
+the default routes them as one group.
 """
 from __future__ import annotations
 
@@ -80,7 +82,9 @@ def zero_memory(cfg: ModelConfig, batch: int, device=None) -> Dict:
     ``frames`` [batch, num_audio_frames, D] for an encoder-decoder config,
     zero ``patches`` [batch, num_image_tokens, D] for a VLM, else none.
     (Zero memory leaves the cross layers inert: zero frames encode to 0
-    and zero patches give zero k and v.)"""
+    and zero patches give zero k and v.) On the card unless ``device``
+    names the CPU, as every entry point."""
+    device = resolve_device(device)
     out = {}
     if cfg.enc_layers:
         out["frames"] = torch.zeros((batch, cfg.num_audio_frames,
@@ -93,22 +97,24 @@ def zero_memory(cfg: ModelConfig, batch: int, device=None) -> Dict:
 
 # ---------------- train ----------------
 
-def forward_train(cfg: ModelConfig, params: Dict,
-                  batch: Dict) -> torch.Tensor:
+def forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
+                  num_groups: int = 1) -> torch.Tensor:
     """Logits [B, S, V] float32 of every position."""
     dev = params["embed"]["tok"].device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     x = embed_tokens(cfg, params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=dev)
     memory = _memory(cfg, params, batch, train=True)
-    x = tf.stack_train(cfg, params["blocks"], x, positions, memory=memory)
+    x = tf.stack_train(cfg, params["blocks"], x, positions, memory=memory,
+                       num_groups=num_groups)
     return logits_out(cfg, params["embed"], x)
 
 
-def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
+def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
+            num_groups: int = 1) -> torch.Tensor:
     """Token-mean cross entropy of ``forward_train``'s logits against
     ``batch["labels"]`` (masked by ``batch["mask"]`` when given)."""
-    logits = forward_train(cfg, params, batch)
+    logits = forward_train(cfg, params, batch, num_groups)
     mask = batch.get("mask")
     return softmax_xent(
         logits, torch.as_tensor(batch["labels"], device=logits.device),
@@ -117,8 +123,8 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
 
 # ---------------- inference ----------------
 
-def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
-            max_len: int) -> Tuple[torch.Tensor, Dict]:
+def prefill(cfg: ModelConfig, params: Dict, batch: Dict, max_len: int,
+            num_groups: int = 1) -> Tuple[torch.Tensor, Dict]:
     """Run the full prompt, returning (last-token logits [B, V] float32,
     filled caches)."""
     dev = params["embed"]["tok"].device
@@ -129,18 +135,20 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
     memory = _memory(cfg, params, batch, train=False)
     caches = tf.init_caches(cfg, b, max_len, dtype_of(cfg), dev)
     x, caches = tf.stack_prefill(cfg, params["blocks"], caches, x, positions,
-                                 memory=memory)
+                                 memory=memory, num_groups=num_groups)
     logits = logits_out(cfg, params["embed"], x[:, -1:])
     return logits[:, 0], caches
 
 
 def serve_step(cfg: ModelConfig, params: Dict, token: torch.Tensor,
-               pos: int, caches: Dict) -> Tuple[torch.Tensor, Dict]:
+               pos: int, caches: Dict,
+               num_groups: int = 1) -> Tuple[torch.Tensor, Dict]:
     """One decode step: token [B] int, pos the position it takes (an int)
     -> (logits [B, V] float32, the caches, updated in place)."""
     dev = params["embed"]["tok"].device
     x = embed_tokens(cfg, params["embed"],
                      torch.as_tensor(token, device=dev)[:, None])
-    x, caches = tf.stack_decode(cfg, params["blocks"], caches, x, pos)
+    x, caches = tf.stack_decode(cfg, params["blocks"], caches, x, pos,
+                                num_groups)
     logits = logits_out(cfg, params["embed"], x)
     return logits[:, 0], caches

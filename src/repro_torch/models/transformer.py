@@ -31,9 +31,20 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import init_mlp, init_rms, mlp_apply, rms_norm
 
 def _stack(trees: List[Dict]) -> Dict:
-    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
-            else torch.stack([t[k] for t in trees]) for k, v in
-            trees[0].items()}
+    """The superblocks' trees stacked leaf by leaf. Each leaf's parts are
+    dropped from ``trees`` once stacked, so the peak is the parts plus one
+    stacked leaf; a single superblock's leaves become views, no copy."""
+    out = {}
+    for k in list(trees[0]):
+        parts = [t.pop(k) for t in trees]
+        if isinstance(parts[0], dict):
+            out[k] = _stack(parts)
+        elif len(parts) == 1:
+            out[k] = parts[0].unsqueeze(0)
+        else:
+            out[k] = torch.stack(parts)
+        del parts
+    return out
 
 
 def _index(tree: Dict, j: int) -> Dict:
@@ -84,12 +95,13 @@ def init_blocks(cfg: ModelConfig, key: torch.Tensor) -> Dict:
     return out
 
 
-def _ffn(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor):
+def _ffn(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
+         num_groups: int = 1):
     if spec.ffn == "none":
         return x
     h = rms_norm(x, p["post_norm"])
-    if spec.ffn == "moe":   # one routing group: B*S tokens route together
-        return x + moe_lib.moe_apply(cfg, p["ffn"], h, 1)
+    if spec.ffn == "moe":   # B*S tokens route in num_groups groups
+        return x + moe_lib.moe_apply(cfg, p["ffn"], h, num_groups)
     return x + mlp_apply(cfg, p["ffn"], h)
 
 
@@ -105,6 +117,7 @@ def _write(cache: Dict, new: Dict) -> None:
 def superblock_train(cfg: ModelConfig, params_sb: Dict, x: torch.Tensor,
                      positions: torch.Tensor,
                      memory: Optional[torch.Tensor],
+                     num_groups: int = 1,
                      causal: bool = True) -> torch.Tensor:
     for i, spec in enumerate(cfg.superblock()):
         p = params_sb[f"l{i}"]
@@ -121,13 +134,14 @@ def superblock_train(cfg: ModelConfig, params_sb: Dict, x: torch.Tensor,
                                     memory=memory)
         else:
             x = x + mb.mamba_apply(cfg, p["mamba"], h)
-        x = _ffn(cfg, spec, p, x)
+        x = _ffn(cfg, spec, p, x, num_groups)
     return x
 
 
 def stack_train(cfg: ModelConfig, blocks: Dict, x: torch.Tensor,
                 positions: torch.Tensor,
                 memory: Optional[torch.Tensor] = None,
+                num_groups: int = 1,
                 causal: bool = True) -> torch.Tensor:
     """The training forward through every superblock; with ``cfg.remat``
     each superblock's activations are recomputed in the backward. The
@@ -136,10 +150,10 @@ def stack_train(cfg: ModelConfig, blocks: Dict, x: torch.Tensor,
     for params_sb in _unbind(blocks, cfg.num_superblocks):
         if cfg.remat:
             x = checkpoint(superblock_train, cfg, params_sb, x, positions,
-                           memory, causal, use_reentrant=False)
+                           memory, num_groups, causal, use_reentrant=False)
         else:
             x = superblock_train(cfg, params_sb, x, positions, memory,
-                                 causal)
+                                 num_groups, causal)
     return x
 
 
@@ -148,7 +162,8 @@ def stack_encode(cfg: ModelConfig, blocks: Dict, x: torch.Tensor,
     """An encoder stack (self-attention layers only) at inference: each
     layer's bidirectional attention through the ``flash_attention``
     kernel. ``stack_train(..., causal=False)`` computes the same with the
-    plain ``attend``."""
+    plain ``attend``. An encoder is dense (``model.encoder_config`` sets
+    no experts), so it takes no ``num_groups``."""
     for j in range(cfg.num_superblocks):
         params_sb = _index(blocks, j)
         for i, spec in enumerate(cfg.superblock()):
@@ -195,7 +210,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
 # ---------------- decode ----------------
 
 def superblock_decode(cfg: ModelConfig, params_sb: Dict, cache_sb: Dict,
-                      x: torch.Tensor, pos: int) -> Tuple[torch.Tensor, Dict]:
+                      x: torch.Tensor, pos: int,
+                      num_groups: int = 1) -> Tuple[torch.Tensor, Dict]:
     for i, spec in enumerate(cfg.superblock()):
         p, c = params_sb[f"l{i}"], cache_sb[f"l{i}"]
         h = rms_norm(x, p["pre_norm"])
@@ -212,15 +228,16 @@ def superblock_decode(cfg: ModelConfig, params_sb: Dict, cache_sb: Dict,
             o, new = mb.mamba_decode(cfg, p["mamba"], h, c)
             _write(c, new)
             x = x + o
-        x = _ffn(cfg, spec, p, x)
+        x = _ffn(cfg, spec, p, x, num_groups)
     return x, cache_sb
 
 
 def stack_decode(cfg: ModelConfig, blocks: Dict, caches: Dict,
-                 x: torch.Tensor, pos: int) -> Tuple[torch.Tensor, Dict]:
+                 x: torch.Tensor, pos: int,
+                 num_groups: int = 1) -> Tuple[torch.Tensor, Dict]:
     for j in range(cfg.num_superblocks):
         x, _ = superblock_decode(cfg, _index(blocks, j), _index(caches, j),
-                                 x, pos)
+                                 x, pos, num_groups)
     return x, caches
 
 
@@ -228,8 +245,8 @@ def stack_decode(cfg: ModelConfig, blocks: Dict, caches: Dict,
 
 def superblock_prefill(cfg: ModelConfig, params_sb: Dict, cache_sb: Dict,
                        x: torch.Tensor, positions: torch.Tensor,
-                       memory: Optional[torch.Tensor]
-                       ) -> Tuple[torch.Tensor, Dict]:
+                       memory: Optional[torch.Tensor],
+                       num_groups: int = 1) -> Tuple[torch.Tensor, Dict]:
     """One superblock over the prompt. A cross-attention layer attends
     over the k/v it makes from ``memory`` before they are cast to the
     cache's dtype, as the JAX package does, then copies them into the
@@ -253,15 +270,15 @@ def superblock_prefill(cfg: ModelConfig, params_sb: Dict, cache_sb: Dict,
             o, new = mb.mamba_prefill(cfg, p["mamba"], h)
             _write(c, new)
             x = x + o
-        x = _ffn(cfg, spec, p, x)
+        x = _ffn(cfg, spec, p, x, num_groups)
     return x, cache_sb
 
 
 def stack_prefill(cfg: ModelConfig, blocks: Dict, caches: Dict,
                   x: torch.Tensor, positions: torch.Tensor,
-                  memory: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, Dict]:
+                  memory: Optional[torch.Tensor] = None,
+                  num_groups: int = 1) -> Tuple[torch.Tensor, Dict]:
     for j in range(cfg.num_superblocks):
         x, _ = superblock_prefill(cfg, _index(blocks, j), _index(caches, j),
-                                  x, positions, memory)
+                                  x, positions, memory, num_groups)
     return x, caches

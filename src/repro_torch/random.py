@@ -23,6 +23,16 @@ sampling) hash a 64-bit iota counter, split into (hi, lo) words, and keep
 A key is an int64 tensor whose last axis holds the two uint32 words; every
 function is vectorised over the leading axes. uint32 arithmetic is emulated
 in int64 and masked with ``& 0xFFFFFFFF``.
+
+Shaped draws evaluate the counter in chunks of at most :data:`CHUNK`
+elements of the flat index, each chunk taken from bits to its final value
+and written into the output (:func:`_draw`): element ``i`` depends on
+counter ``i`` alone, so the bits are those of one evaluation, and a draw's
+peak memory is its output plus O(``CHUNK``) (a [16, 4096, 14336] expert
+tensor's counter alone would be 940M int64 values). On the ``meta`` device
+there are no values: every function returns an empty tensor of its result's
+shape and dtype in one op, so an abstract ``init_params`` costs about one
+op a leaf.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
+CHUNK = 1 << 22         # counter elements a shaped draw evaluates at once
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
@@ -45,6 +56,11 @@ def threefry2x32(k0, k1, x0, x1):
     All four arguments are int64 tensors of uint32 values that broadcast
     against each other; returns the two output words.
     """
+    if k0.is_meta:
+        shape = torch.broadcast_shapes(*(torch.as_tensor(t).shape
+                                         for t in (k0, k1, x0, x1)))
+        out = torch.empty(shape, dtype=torch.int64, device="meta")
+        return out, out
     ks = (k0, k1, (k0 ^ k1 ^ 0x1BD11BDA) & MASK)
     x0 = (x0 + ks[0]) & MASK
     x1 = (x1 + ks[1]) & MASK
@@ -108,15 +124,21 @@ def uniform(key: torch.Tensor, shape=None, minval=0.0,
     XLA's CPU backend fuses the scale and shift into one multiply-add (the
     float32 product is exact in float64 and the sum is rounded once)."""
     if shape is not None:
-        floats = _to_float(random_bits(key, shape))
-    else:
-        zero = torch.zeros((), dtype=torch.int64, device=key.device)
-        out = _counter(key, zero, zero)
-        floats = _to_float(out[..., 0] ^ out[..., 1])
+        return _draw(key, shape, torch.float32,
+                     lambda bits: _scale(_to_float(bits), minval, maxval))
+    zero = torch.zeros((), dtype=torch.int64, device=key.device)
+    out = _counter(key, zero, zero)
+    return _scale(_to_float(out[..., 0] ^ out[..., 1]), minval, maxval)
+
+
+def _scale(floats: torch.Tensor, minval: float,
+           maxval: float) -> torch.Tensor:
+    """``max(minval, floats * (maxval - minval) + minval)`` with the scale
+    and shift fused into one rounding, as XLA's CPU backend computes it."""
     if (minval, maxval) == (0.0, 1.0):      # the range leaves floats as is
         return floats
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
     return torch.maximum(lo, (floats.double() * (hi - lo).double()
                               + lo.double()).float())
 
@@ -155,9 +177,11 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal(key, shape)`` (float32): JAX's ``_normal_real``,
     ``sqrt(2) * erf_inv(uniform(key, shape, nextafter(-1, 0), 1))``. The
-    uniforms are bit-exact; :func:`erf_inv` agrees to 3 ulps."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
-    return erf_inv(u) * np.float32(np.sqrt(2.0))
+    uniforms are bit-exact; :func:`erf_inv` agrees to 3 ulps. Each chunk
+    goes from bits to its normal values before the next is drawn."""
+    sqrt2 = np.float32(np.sqrt(2.0))
+    return _draw(key, shape, torch.float32, lambda bits: erf_inv(
+        _scale(_to_float(bits), _NORMAL_LO, 1.0)) * sqrt2)
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
@@ -172,15 +196,39 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits + (-torch.log(-torch.log(u))), dim=-1)
 
 
+def _bits(key: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``o0 ^ o1`` of ``threefry(key, (i >> 32, i & MASK))`` for the flat
+    indices ``lo <= i < hi``."""
+    count = torch.arange(lo, hi, dtype=torch.int64, device=key.device)
+    o0, o1 = threefry2x32(key[0], key[1], count >> 32, count & MASK)
+    return o0 ^ o1
+
+
+def _draw(key, shape, dtype: torch.dtype, finish, keys=None) -> torch.Tensor:
+    """A shaped draw of ``dtype`` under one [2] key, in chunks of
+    :data:`CHUNK` flat indices: ``finish`` maps each chunk's bits (one
+    tensor per key of ``keys``, default ``key`` alone) to its values, which
+    are written into the output. On ``meta``, the empty output."""
+    shape = tuple(int(d) for d in shape)
+    if key.is_meta:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    keys = (key,) if keys is None else keys
+    n = math.prod(shape)
+    if n <= CHUNK:      # one chunk: no output buffer to copy into
+        return finish(*(_bits(k, 0, n) for k in keys)).to(dtype).reshape(
+            shape)
+    out = torch.empty(n, dtype=dtype, device=key.device)
+    for lo in range(0, n, CHUNK):
+        hi = min(n, lo + CHUNK)
+        out[lo:hi] = finish(*(_bits(k, lo, hi) for k in keys))
+    return out.reshape(shape)
+
+
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` for one [2] key: element
     ``i`` of the flattened shape is ``o0 ^ o1`` of ``threefry(key, (i >>
     32, i & MASK))``. Returns int64 holding uint32 values."""
-    shape = tuple(int(d) for d in shape)
-    count = torch.arange(math.prod(shape), dtype=torch.int64,
-                         device=key.device)
-    o0, o1 = threefry2x32(key[0], key[1], count >> 32, count & MASK)
-    return (o0 ^ o1).reshape(shape)
+    return _draw(key, shape, torch.int64, lambda bits: bits)
 
 
 def randint(key: torch.Tensor, shape, minval: int,
@@ -192,15 +240,15 @@ def randint(key: torch.Tensor, shape, minval: int,
     at 2**32 as JAX's uint32 arithmetic does (for span > 2**16 the
     multiplier's square wraps to 0)."""
     minval, maxval = int(minval), int(maxval)
-    k1, k2 = split(key)
-    hi = random_bits(k1, shape)
-    lo = random_bits(k2, shape)
     span = (maxval - minval) & MASK if maxval > minval else 1
     multiplier = (2 ** 16) % span
     multiplier = ((multiplier * multiplier) & MASK) % span
-    offset = (((hi % span) * multiplier) & MASK) + lo % span
-    offset = (offset & MASK) % span
-    return (minval + offset).to(torch.int32)
+
+    def finish(hi, lo):
+        offset = (((hi % span) * multiplier) & MASK) + lo % span
+        return minval + (offset & MASK) % span
+    k1, k2 = split(key)
+    return _draw(key, shape, torch.int32, finish, keys=(k1, k2))
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -550,3 +550,42 @@ def test_lm_train_steps_on_card_match_cpu(cuda, arch, remat):
 def _flat(tree):
     return [x for k in sorted(tree) for x in
             (_flat(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
+
+
+def test_chunked_normal_peak_is_output_plus_a_chunk(cuda):
+    """A [16, 4096, 14336] normal (one jamba expert tensor, 940M draws):
+    the peak over the draw stays under its float32 output plus 1 GB (one
+    threefry evaluation of the whole counter would take tens of GB), and
+    its first draws equal a short draw's under the same key."""
+    shape = (16, 4096, 14336)
+    key = jr.PRNGKey(3, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = jr.normal(key, shape)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    n = out.numel()
+    assert peak <= n * 4 + 1e9, peak
+    assert torch.equal(out.view(-1)[:1000], jr.normal(key, (1000,)))
+    del out
+    torch.cuda.empty_cache()
+
+
+def test_flash_meta_route_is_never_taken_on_cuda(cuda):
+    """On CUDA tensors ``flash_attention`` launches a kernel and counts it;
+    the meta route's op never runs (its FLOP formula sees no call)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import flash_attention as FA
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((1, 128, h, 64), generator=g, device=cuda)
+               .to(torch.bfloat16) for h in (4, 2, 2))
+    before = FA.flash_attention.launches
+    with FlopCounterMode(display=False) as counter:
+        out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert out.device.type == "cuda" and counter.get_total_flops() == 0
+    assert "repro_torch.flash_attention_meta" not in {
+        str(op) for op in counter.get_flop_counts()["Global"]}

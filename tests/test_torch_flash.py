@@ -128,8 +128,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(q, k[:, :8].contiguous(), v[:, :8].contiguous())
     with pytest.raises(ValueError, match="window"):
         flash_attention(q, k, v, window=-1)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    # a meta tensor (the dry-run's abstract step) takes the meta route: an
+    # empty result of q's shape, no launch counted
+    before = flash_attention.launches
+    out = flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.is_meta and out.shape == q.shape and out.dtype == q.dtype
+    assert flash_attention.launches == before
 
 
 @pytest.mark.parametrize("dtype,dh,want", [

@@ -115,3 +115,67 @@ def test_trainer_entry_points_need_a_card_or_the_cpu(monkeypatch):
         train_streamed("wec:k=4,deg=4", cfg)
     emb, st = train_streamed("wec:k=4,deg=4", cfg, device="cpu")
     assert emb.shape == (16, 4) and st.steps > 0
+
+
+# the modules this slice added: the dry-run, its sharding rules and
+# shape-only meshes, the roofline terms and the module map
+DRYRUN_MODULES = ("repro_torch.launch.dryrun", "repro_torch.launch.dryrun_walk",
+                  "repro_torch.launch.sharding", "repro_torch.launch.mesh",
+                  "repro_torch.roofline.analysis",
+                  "repro_torch.roofline.traffic", "repro_torch.module_map")
+NOT_CARRIED = {"src/repro/kernels/ops.py", "src/repro/kernels/ref.py",
+               "src/repro/models/actsharding.py",
+               "src/repro/models/optflags.py"}
+
+
+def test_dryrun_modules_are_port_modules():
+    assert set(DRYRUN_MODULES) <= set(PORT_MODULES)
+    for m in DRYRUN_MODULES:
+        path = ROOT / "src" / (m.replace(".", "/") + ".py")
+        assert path in PORT_FILES
+
+
+def test_module_map_covers_the_jax_package():
+    """Every ``src/repro/**/*.py`` maps to a port module that exists, or
+    to "not carried: <reason>"; exactly the four TPU- and XLA-only modules
+    are not carried."""
+    from repro_torch.module_map import MODULE_MAP
+    jax_files = {p.relative_to(ROOT).as_posix()
+                 for p in (ROOT / "src" / "repro").rglob("*.py")}
+    assert set(MODULE_MAP) == jax_files
+    skipped = {k for k, v in MODULE_MAP.items()
+               if v.startswith("not carried: ")}
+    assert skipped == NOT_CARRIED
+    for k, v in MODULE_MAP.items():
+        if k in skipped:
+            assert len(v) > len("not carried: ") + 20, k
+        else:
+            assert (ROOT / v).is_file(), (k, v)
+            assert v.startswith("src/repro_torch/"), v
+
+
+def test_dryrun_entry_points_need_no_card(monkeypatch, tmp_path, capsys):
+    """The dry-runs touch no device: they run, and put nothing on a card,
+    where none is present."""
+    from repro_torch.launch import dryrun, dryrun_walk
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dryrun, "ART_DIR", tmp_path / "lm")
+    monkeypatch.setattr(dryrun_walk, "ART_DIR", tmp_path / "walk")
+    assert dryrun.main(["--arch", "mamba2-370m", "--shape", "decode_32k"]) \
+        == 0
+    assert dryrun_walk.main(["--cell", "fn_cache"]) == 0
+    out = capsys.readouterr().out
+    assert "bottleneck=" in out and "fn_cache" in out
+    assert (tmp_path / "lm" / "mamba2-370m__decode_32k__pod16x16.json"
+            ).is_file()
+    assert (tmp_path / "walk" / "fn_cache.json").is_file()
+
+
+def test_zero_memory_needs_a_card_or_the_cpu(monkeypatch):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as M
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = smoke_config("seamless-m4t-medium")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.zero_memory(cfg, 2)
+    assert M.zero_memory(cfg, 2, "cpu")["frames"].device.type == "cpu"

@@ -115,3 +115,57 @@ def test_permutation(n):
         assert np.array_equal(got.numpy(),
                               np.asarray(jax.random.permutation(jk, n)))
     assert np.array_equal(np.sort(got.numpy()), np.arange(n))
+
+
+@pytest.mark.parametrize("chunk", [7, 64, 1000])
+@pytest.mark.parametrize("shape", [(7,), (9, 13), (2, 64, 8), (1000,)])
+def test_chunked_draws_equal_one_chunk_and_jax(monkeypatch, chunk, shape):
+    """Shaped draws evaluated in chunks of ``chunk`` flat indices (a small
+    test-only chunk, so sizes straddle chunk edges): ``random_bits``,
+    ``uniform``, ``normal`` and ``randint`` are ``torch.equal`` to one
+    chunk, and the integer and uniform draws equal ``jax.random``."""
+    jk, tk = jax.random.PRNGKey(5), jr.PRNGKey(5)
+
+    def draws():
+        return (jr.random_bits(tk, shape), jr.uniform(tk, shape, -2.0, 3.5),
+                jr.normal(tk, shape), jr.randint(tk, shape, -3, 70_001))
+    whole = draws()
+    monkeypatch.setattr(jr, "CHUNK", chunk)
+    for a, b in zip(draws(), whole):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    bits, uni, _, ints = draws()
+    assert np.array_equal(bits.numpy(), np.asarray(
+        jax.random.bits(jk, shape, jnp.uint32)).astype(np.int64))
+    assert np.array_equal(uni.numpy(), np.asarray(
+        jax.random.uniform(jk, shape, minval=-2.0, maxval=3.5)))
+    assert np.array_equal(ints.numpy(), np.asarray(
+        jax.random.randint(jk, shape, -3, 70_001)))
+
+
+def test_meta_draws_return_their_shape_without_computing():
+    """On ``meta`` a draw is an empty tensor of its shape and dtype: no
+    threefry rounds run (one evaluation is ~140 ops), whatever the size;
+    ``randint``'s key split adds a few ops."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func)
+            return func(*args, **(kwargs or {}))
+    key = jr.PRNGKey(0, device="meta")
+    shape = (16, 4096, 14336)
+    for draw, dtype in ((lambda: jr.normal(key, shape), torch.float32),
+                        (lambda: jr.uniform(key, shape), torch.float32),
+                        (lambda: jr.random_bits(key, shape), torch.int64),
+                        (lambda: jr.randint(key, shape, 0, 9), torch.int32)):
+        with Ops() as seen:
+            out = draw()
+        assert out.is_meta and out.shape == shape and out.dtype == dtype
+        assert len(seen.ops) < 12, seen.ops
+    with Ops() as seen:
+        sub = jr.split(jr.fold_in(key, 3), 4)
+    assert sub.shape == (4, 2) and sub.is_meta and len(seen.ops) < 20
