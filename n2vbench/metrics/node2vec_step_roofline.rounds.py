@@ -1,0 +1,5 @@
+"""``node2vec_step_roofline``, read alike, in the cells that report
+``walk_steps_per_s.rounds`` (the rounds pipeline, paced by the host)."""
+from n2vbench.harness import reader
+
+read = reader("node2vec_step_roofline")

@@ -1,0 +1,19 @@
+"""The whole training step's share of the card's peak: the larger of a
+step's counted FLOPs at the float32 peak and its counted bytes at the HBM
+rate (``counts/train_step.py``), over the traced window's time a step
+(walking excluded, the round's host work and the negative table
+included)."""
+from n2vbench.counts import train_step
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.peaks is None or ctx.sgns is None \
+            or not ctx.train_steps:
+        return None
+    v, d = ctx.sgns["vocab"], ctx.sgns["dim"]
+    b, k = ctx.sgns["batch"], ctx.sgns["k"]
+    bound = max(train_step.flops_per_step(v, d, b, k)
+                / ctx.peaks["f32_flops"],
+                train_step.bytes_per_step(v, d, b, k)
+                / ctx.peaks["hbm_bytes_per_s"])
+    return 100.0 * bound / (ctx.trace.window_s / ctx.train_steps)
