@@ -66,11 +66,23 @@ def alias_sample(keys: torch.Tensor, prob_rows: torch.Tensor,
                  ) -> torch.Tensor:
     """Batched O(1) alias draw: keys [W, 2], tables [W, D], width [W] (the
     live degree). Returns the sampled slot per walker, [W] int64."""
+    return alias_pick(*alias_uniforms(keys), prob_rows, alias_rows, width)
+
+
+def alias_uniforms(keys: torch.Tensor):
+    """The RNG of :func:`alias_sample`: the slot's and the accept test's
+    uniforms, [W] each, from keys [W, 2]."""
     sub = jr.split(keys)                                  # [W, 2, 2]
+    return jr.uniform(sub[:, 0]), jr.uniform(sub[:, 1])
+
+
+def alias_pick(u_slot: torch.Tensor, u_accept: torch.Tensor,
+               prob_rows: torch.Tensor, alias_rows: torch.Tensor,
+               width: torch.Tensor) -> torch.Tensor:
+    """The rest of :func:`alias_sample`, given its uniforms."""
     width = torch.clamp(width.to(torch.int32), min=1)
-    slot = (jr.uniform(sub[:, 0]) * width.to(torch.float32)).to(torch.int32)
+    slot = (u_slot * width.to(torch.float32)).to(torch.int32)
     slot = torch.minimum(slot, width - 1).long()
-    u = jr.uniform(sub[:, 1])
     p = torch.gather(prob_rows, 1, slot[:, None])[:, 0]
     a = torch.gather(alias_rows, 1, slot[:, None])[:, 0].long()
-    return torch.where(u >= p, a, slot)
+    return torch.where(u_accept >= p, a, slot)

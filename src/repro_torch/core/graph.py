@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core.alias import build_alias_rows
 from repro_torch.device import resolve_device
+from repro_torch.tracing import stage
 
 PAD_ID = int(np.iinfo(np.int32).max)
 
@@ -147,8 +148,9 @@ class PaddedGraph:
         """``cap=None`` -> cap = max degree (FN-Base layout: no hot set).
         ``device=None`` means the card; pass ``"cpu"`` for the host."""
         device = resolve_device(device)
-        return PaddedGraph.from_numpy(
-            layout_arrays(g, cap, hot_cap), g.n, device)
+        with stage("layout"):
+            return PaddedGraph.from_numpy(
+                layout_arrays(g, cap, hot_cap), g.n, device)
 
     @staticmethod
     def from_numpy(fields: dict, n: int, device) -> "PaddedGraph":
@@ -188,21 +190,23 @@ def layout_arrays(g: CSRGraph, cap: Optional[int] = None,
             wrows[i, :d] = g.wgt[lo:lo + d]
         return rows, wrows
 
-    adj, wgt = pack_rows(np.arange(g.n, dtype=np.int32), cap)
-    if len(hot_vertices):
-        hot_list = hot_vertices
-        hot_adj, hot_wgt = pack_rows(hot_list, hot_cap)
-    else:
-        # sentinel hot set that can never match a real vertex id
-        hot_list = np.full(1, PAD_ID, np.int32)
-        hot_adj = np.full((1, hot_cap), PAD_ID, np.int32)
-        hot_wgt = np.zeros((1, hot_cap), np.float32)
+    with stage("layout.rows"):
+        adj, wgt = pack_rows(np.arange(g.n, dtype=np.int32), cap)
+        if len(hot_vertices):
+            hot_list = hot_vertices
+            hot_adj, hot_wgt = pack_rows(hot_list, hot_cap)
+        else:
+            # sentinel hot set that can never match a real vertex id
+            hot_list = np.full(1, PAD_ID, np.int32)
+            hot_adj = np.full((1, hot_cap), PAD_ID, np.int32)
+            hot_wgt = np.zeros((1, hot_cap), np.float32)
 
     hot_pos = np.full(g.n, -1, dtype=np.int32)
     hot_pos[hot_vertices] = np.arange(len(hot_vertices), dtype=np.int32)
 
-    alias_p, alias_i = build_alias_rows(wgt)
-    hot_alias_p, hot_alias_i = build_alias_rows(hot_wgt)
+    with stage("layout.alias"):
+        alias_p, alias_i = build_alias_rows(wgt)
+        hot_alias_p, hot_alias_i = build_alias_rows(hot_wgt)
 
     w_min = np.ones(g.n, dtype=np.float32)
     w_max = np.ones(g.n, dtype=np.float32)

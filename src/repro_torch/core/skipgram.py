@@ -30,6 +30,7 @@ from repro_torch import random as jr
 from repro_torch.device import deterministic
 from repro_torch.kernels.sgns import sgns_fused_tables
 from repro_torch.optim.optimizers import Optimizer, apply_updates
+from repro_torch.tracing import span
 
 SGNS_BACKENDS = ("jnp", "fused")
 
@@ -108,7 +109,7 @@ def sgns_grads(params, batch, backend: str = "jnp"):
         params["emb_in"], params["emb_out"], _int32(batch["center"]),
         _int32(batch["pos"]), _int32(batch["neg"]), v, denom)
     d = g_ci.shape[1]
-    with deterministic(dev):
+    with span("train.scatter", dev), deterministic(dev):
         g_in = torch.zeros_like(params["emb_in"]).index_add_(0, center, g_ci)
         g_out = (torch.zeros_like(params["emb_out"])
                  .index_add_(0, pos, g_po)

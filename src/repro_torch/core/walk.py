@@ -18,9 +18,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import random as jr
+from repro_torch.core.alias import alias_pick, alias_uniforms
 from repro_torch.core.graph import PAD_ID, PaddedGraph
-from repro_torch.engine.sampler import (HotContext, Sampler, first_order_slots,
-                                        split_keys)
+from repro_torch.engine.sampler import HotContext, Sampler, split_keys
+from repro_torch.tracing import span
 
 _FILL = {"adj": PAD_ID, "wgt": 0.0, "alias_p": 0.0, "alias_i": 0}
 
@@ -71,22 +72,26 @@ def _first_step(pg: PaddedGraph, starts: torch.Tensor,
     ids0, ap0, ai0, _ = unified_row(pg, starts, ("adj", "alias_p",
                                                  "alias_i"))
     deg0 = pg.deg[clamp_ids(pg, starts)]
-    slot0 = first_order_slots(jr.fold_in(walker_keys, 0), ap0, ai0, deg0)
+    with span("walk.rng", starts.device):
+        uniforms = alias_uniforms(jr.fold_in(walker_keys, 0))
+    slot0 = alias_pick(*uniforms, ap0, ai0, deg0)
     v1 = torch.where(deg0 > 0, _gather(ids0, slot0), starts)
     return v1, ids0
 
 
-def _fused_step(pg: PaddedGraph, sampler: Sampler, keys: torch.Tensor,
-                u: torch.Tensor, v: torch.Tensor, vc, ids,
+def _fused_step(pg: PaddedGraph, sampler: Sampler, wkeys: torch.Tensor,
+                s: int, u: torch.Tensor, v: torch.Tensor, vc, ids,
                 hot) -> torch.Tensor:
-    """One superstep of the fused backend: the exact draw and its next
+    """Superstep ``s`` of the fused backend (``wkeys``: the walkers'
+    keys, all its RNG in one span): the exact draw and its next
     vertex from the ``node2vec_step`` kernel's layout entry (v's and u's
     rows read in place), then, in the approx modes, the alias draw on v's
     full-width ids where the O(1) path is taken (``vc``: v clamped)."""
     from repro_torch.kernels.node2vec_step import node2vec_step_layout
-    k_exact, k_approx = split_keys(keys)
-    slot, nxt = node2vec_step_layout(pg, u, v, jr.uniform(k_exact),
-                                     sampler.p, sampler.q)
+    with span("walk.rng", wkeys.device):
+        k_exact, k_approx = split_keys(jr.fold_in(wkeys, s))
+        rand = jr.uniform(k_exact)
+    slot, nxt = node2vec_step_layout(pg, u, v, rand, sampler.p, sampler.q)
     choice = sampler.with_alias(slot, k_approx, hot)
     if choice.use_alias is None:
         return nxt
@@ -105,8 +110,11 @@ def run_reference(pg: PaddedGraph, starts: torch.Tensor,
     exact mode builds no ``[W, hot_cap]`` rows and the approx modes build
     only the ids and alias rows of the O(1) path; otherwise every step
     builds v's full-width rows and draws on them."""
-    wkeys = jr.fold_in(seed_key, walker_ids)
-    v1, prev = _first_step(pg, starts, wkeys)
+    dev = starts.device
+    with span("walk.rng", dev):
+        wkeys = jr.fold_in(seed_key, walker_ids)
+    with span("walk.draw"):
+        v1, prev = _first_step(pg, starts, wkeys)
     cols = [v1]
     u, v = starts, v1
     approx = sampler.mode != "exact"
@@ -116,29 +124,31 @@ def run_reference(pg: PaddedGraph, starts: torch.Tensor,
         fields = ("adj", "wgt", "alias_p", "alias_i") if approx else \
             ("adj", "wgt")
     for s in range(1, length):
-        keys = jr.fold_in(wkeys, s)
-        rows = dict(zip(fields + ("is_hot",), unified_row(pg, v, fields))) \
-            if fields else {}
-        # exact fused steps read no field of v here
-        vc = clamp_ids(pg, v) if approx or not sampler.fused else None
-        hot = None
-        if approx:
-            uc = clamp_ids(pg, u)
-            hot = HotContext(
-                is_hot_v=rows["is_hot"], is_hot_u=pg.hot_pos[uc] >= 0,
-                deg_u=pg.deg[uc], deg_v=pg.deg[vc],
-                w_min_v=pg.w_min[vc], w_max_v=pg.w_max[vc],
-                alias_p=rows["alias_p"], alias_i=rows["alias_i"],
-                alias_deg=pg.deg[vc])
-        if sampler.fused:
-            nxt = _fused_step(pg, sampler, keys, u, v, vc, rows.get("adj"),
-                              hot)
-        else:
-            ids = rows["adj"]
-            choice = sampler.choose(keys, ids, rows["wgt"], u, prev, hot)
-            nxt = torch.where(pg.deg[vc] > 0, _gather(ids, choice.slot()),
-                              v)
-            prev = ids
+        with span("walk.draw"):
+            rows = dict(zip(fields + ("is_hot",),
+                            unified_row(pg, v, fields))) if fields else {}
+            # exact fused steps read no field of v here
+            vc = clamp_ids(pg, v) if approx or not sampler.fused else None
+            hot = None
+            if approx:
+                uc = clamp_ids(pg, u)
+                hot = HotContext(
+                    is_hot_v=rows["is_hot"], is_hot_u=pg.hot_pos[uc] >= 0,
+                    deg_u=pg.deg[uc], deg_v=pg.deg[vc],
+                    w_min_v=pg.w_min[vc], w_max_v=pg.w_max[vc],
+                    alias_p=rows["alias_p"], alias_i=rows["alias_i"],
+                    alias_deg=pg.deg[vc])
+            if sampler.fused:
+                nxt = _fused_step(pg, sampler, wkeys, s, u, v, vc,
+                                  rows.get("adj"), hot)
+            else:
+                with span("walk.rng", dev):
+                    keys = jr.fold_in(wkeys, s)
+                ids = rows["adj"]
+                choice = sampler.choose(keys, ids, rows["wgt"], u, prev, hot)
+                nxt = torch.where(pg.deg[vc] > 0,
+                                  _gather(ids, choice.slot()), v)
+                prev = ids
         u, v = v, nxt
         cols.append(nxt)
     return torch.stack(cols, dim=1)
@@ -167,11 +177,16 @@ def run_fused_persistent(pg: PaddedGraph, starts: torch.Tensor,
     """
     from repro_torch.kernels.node2vec_step import node2vec_walk
 
-    wkeys = jr.fold_in(seed_key, walker_ids)
-    v1, _ = _first_step(pg, starts, wkeys)
+    dev = starts.device
+    with span("walk.rng", dev):
+        wkeys = jr.fold_in(seed_key, walker_ids)
+    with span("walk.draw"):
+        v1, _ = _first_step(pg, starts, wkeys)
     if length == 1:
         return v1[:, None]
-    rand = step_uniforms(seed_key, walker_ids, length)
-    tail = node2vec_walk(pg.adj, pg.wgt, pg.deg, starts, v1, rand,
-                         sampler.p, sampler.q)
+    with span("walk.draw"):
+        with span("walk.rng", dev):
+            rand = step_uniforms(seed_key, walker_ids, length)
+        tail = node2vec_walk(pg.adj, pg.wgt, pg.deg, starts, v1, rand,
+                             sampler.p, sampler.q)
     return torch.cat([v1[:, None], tail], dim=1)

@@ -40,10 +40,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch import random as jr
-from repro_torch.core.alias import build_alias_rows
+from repro_torch.core.alias import alias_sample, build_alias_rows
 from repro_torch.core.graph import PAD_ID, CSRGraph, PaddedGraph
 from repro_torch.device import resolve_device
-from repro_torch.engine.sampler import HotContext, Sampler, first_order_slots
+from repro_torch.engine.sampler import HotContext, Sampler
 
 ROW_FIELDS = ("adj", "wgt", "alias_p", "alias_i", "deg")
 HOT_FIELDS = ("hot_ids", "hot_adj", "hot_wgt", "hot_alias_p",
@@ -380,7 +380,7 @@ def _first_step_local(g: ShardedGraph, starts, keys):
     ids = torch.where(hot, g.hot_adj[hp],
                       _widen(g.adj[li], g.hot_cap, PAD_ID))
     deg = g.deg[li]
-    slots = first_order_slots(keys, ap, ai, deg)
+    slots = alias_sample(keys, ap, ai, deg)
     nxt = torch.gather(ids, 1, slots[:, None])[:, 0]
     return torch.where(deg > 0, nxt, starts), g.adj[li], deg
 

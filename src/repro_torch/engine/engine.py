@@ -53,6 +53,7 @@ from repro_torch.roofline.traffic import (H100_F32_FLOPS, H100_NVLINK_BW,
                                           walk_exchange_bytes,
                                           walk_overlap_model,
                                           walk_step_flops)
+from repro_torch.tracing import span
 
 
 def round_seed(seed: int, r: int) -> int:
@@ -245,20 +246,22 @@ class WalkEngine:
     def _dispatch(self, starts, seed: int, walker_ids):
         """Enqueue one run; returns (walks tensor on the device, the drops
         or None, the row count to keep or None, the update snapshot)."""
-        dev = self.device
-        key = jr.PRNGKey(seed, device=dev)
-        if self.sg is not None:
-            return self._dispatch_sharded(starts, key, walker_ids)
-        if starts is None:
-            starts = np.arange(self.pg.n, dtype=np.int32)
-        starts = torch.as_tensor(np.asarray(starts, np.int32), device=dev)
-        walker_ids = starts if walker_ids is None else torch.as_tensor(
-            np.asarray(walker_ids, np.int32), device=dev)
-        run = run_fused_persistent if self._fused_persistent() \
-            else run_reference
-        walks = run(self.pg, starts, walker_ids.long(), key, self._sampler,
-                    self.plan.length)
-        return walks, None, None, self._update_meta()
+        with span("walk.dispatch", supersteps=self.plan.length):
+            dev = self.device
+            key = jr.PRNGKey(seed, device=dev)
+            if self.sg is not None:
+                return self._dispatch_sharded(starts, key, walker_ids)
+            if starts is None:
+                starts = np.arange(self.pg.n, dtype=np.int32)
+            starts = torch.as_tensor(np.asarray(starts, np.int32),
+                                     device=dev)
+            walker_ids = starts if walker_ids is None else torch.as_tensor(
+                np.asarray(walker_ids, np.int32), device=dev)
+            run = run_fused_persistent if self._fused_persistent() \
+                else run_reference
+            walks = run(self.pg, starts, walker_ids.long(), key,
+                        self._sampler, self.plan.length)
+            return walks, None, None, self._update_meta()
 
     def _dispatch_sharded(self, starts, key, walker_ids):
         """This rank walks its block of ``starts`` (which every rank is
@@ -302,7 +305,8 @@ class WalkEngine:
 
     def _finalize(self, dispatched) -> WalkResult:
         walks, drops, slice_to, (gv, delta_edges, inv_frac) = dispatched
-        walks = walks.cpu().numpy()
+        with span("walk.copy", walks.device):
+            walks = walks.cpu().numpy()
         if slice_to is not None:
             walks = walks[:slice_to]
         dropped = int(drops) if drops is not None else 0

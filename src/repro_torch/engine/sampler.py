@@ -22,9 +22,10 @@ from typing import Optional
 import torch
 
 from repro_torch import random as jr
-from repro_torch.core.alias import alias_sample
+from repro_torch.core.alias import alias_pick, alias_uniforms
 from repro_torch.core.graph import PAD_ID
 from repro_torch.core.transition import approx_gap, unnormalized_probs
+from repro_torch.tracing import span
 
 MODES = ("exact", "approx", "approx_always")
 SCAN_BASE = 16
@@ -80,13 +81,6 @@ def exact_slots(cand_ids: torch.Tensor, cand_w: torch.Tensor,
     valid = cand_ids != PAD_ID
     slot = ((cum <= target) & valid).sum(dim=-1)
     return torch.clamp(slot, max=cand_ids.shape[-1] - 1).to(torch.int32)
-
-
-def first_order_slots(keys: torch.Tensor, alias_p: torch.Tensor,
-                      alias_i: torch.Tensor, deg: torch.Tensor
-                      ) -> torch.Tensor:
-    """Step-0 / fast-path draw from static edge weights (Vose alias), [W]."""
-    return alias_sample(keys, alias_p, alias_i, deg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,8 +140,9 @@ class Sampler:
     def choose(self, keys, cand_ids, cand_w, u, prev_rows,
                hot: Optional[HotContext] = None) -> StepChoice:
         """One superstep draw for a [W] batch of walkers."""
-        k_exact, k_approx = split_keys(keys)
-        rand = jr.uniform(k_exact)
+        with span("walk.rng", keys.device):
+            k_exact, k_approx = split_keys(keys)
+            rand = jr.uniform(k_exact)
         slot_exact = self.exact(rand, cand_ids, cand_w, u, prev_rows)
         return self.with_alias(slot_exact, k_approx, hot)
 
@@ -157,8 +152,10 @@ class Sampler:
         O(1) alias draw under ``k_approx`` and where it is taken."""
         if self.mode == "exact" or hot is None:
             return StepChoice(slot_exact)
-        slot_alias = first_order_slots(k_approx, hot.alias_p, hot.alias_i,
-                                       hot.alias_deg)
+        with span("walk.rng", k_approx.device):
+            uniforms = alias_uniforms(k_approx)
+        slot_alias = alias_pick(*uniforms, hot.alias_p, hot.alias_i,
+                                hot.alias_deg)
         if self.mode == "approx":
             gap = approx_gap(hot.deg_u, hot.deg_v, hot.w_min_v, hot.w_max_v,
                              self.p, self.q)

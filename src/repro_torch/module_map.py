@@ -6,8 +6,8 @@ has no counterpart and needs none. ``MODULE_MAP`` applies that rule to
 every ``src/repro/**/*.py`` of this checkout, so a new module of the JAX
 package needs no edit here (tests/test_torch_hygiene.py holds both
 directions). The port adds modules of its own beside them: ``random.py``
-(threefry, bit-exact with ``jax.random``), ``device.py``, ``convert.py``
-and ``kernels/build.py``.
+(threefry, bit-exact with ``jax.random``), ``device.py``, ``convert.py``,
+``tracing.py`` (its spans and counts) and ``kernels/build.py``.
 """
 from pathlib import Path
 

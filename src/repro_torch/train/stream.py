@@ -38,6 +38,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_table_mesh
 from repro_torch.optim.optimizers import adam, adam_rows, apply_updates
 from repro_torch.roofline.traffic import sgns_exchange_bytes
+from repro_torch.tracing import span
 from repro_torch.train.pairs import device_negatives, device_pairs, num_pairs
 from repro_torch.train.shard import (gather_tables, shard_params,
                                      table_rows, train_epoch_sharded,
@@ -68,21 +69,25 @@ def _train_epoch(params, opt_state, c, x, valid, perm2d, prob, alias, key,
     grid, a gather of pairs, alias negatives and one SGNS update. Returns
     (params, opt_state, per-step losses [steps])."""
     steps, batch_size = perm2d.shape
-    lane = torch.arange(batch_size, device=perm2d.device)
+    dev = perm2d.device
+    lane = torch.arange(batch_size, device=dev)
     losses = []
     for s in range(steps):
         idx = perm2d[s]
         in_bounds = (s * batch_size + lane) < n_pairs
+        with span("train.negatives", dev):
+            neg = device_negatives(jr.fold_in(key, s), prob, alias,
+                                   (batch_size, negatives))
         batch = {
             "center": c[idx],
             "pos": x[idx],
-            "neg": device_negatives(jr.fold_in(key, s), prob, alias,
-                                    (batch_size, negatives)),
+            "neg": neg,
             "valid": (valid[idx] & in_bounds).to(torch.float32),
         }
         loss, grads = sgns_grads(params, batch, backend)
-        updates, opt_state = opt.update(grads, opt_state, params)
-        params = apply_updates(params, updates)
+        with span("train.adam", dev):
+            updates, opt_state = opt.update(grads, opt_state, params)
+            params = apply_updates(params, updates)
         losses.append(loss)
     return params, opt_state, torch.stack(losses)
 
@@ -179,44 +184,50 @@ class StreamingSGNSTrainer:
         walks = np.ascontiguousarray(walks, np.int32)
         w, l = walks.shape
         n_pairs = num_pairs(w, l, self.window)
-        prob, alias, alias_bytes = self._alias_refresh(walks)
-        if n_pairs == 0:
-            self._round += 1
-            self.recorder.round_trained(time.perf_counter() - t0, 0, 0,
-                                        w * l, walks.nbytes + alias_bytes, 0)
-            return
-        dev_walks = torch.from_numpy(walks).to(self.device)
-        c, x, valid, n_valid = _gen_pairs(dev_walks, self.window)
-        self._pair_counts.append(n_valid * self.epochs)
         steps = math.ceil(n_pairs / self.batch_size)
-        rkey = jr.fold_in(self._key, self._round)
-        for e in range(self.epochs):
-            pkey, skey = jr.split(jr.fold_in(rkey, e))
-            perm2d = _perm_batches(pkey, n_pairs, steps, self.batch_size)
-            kw = dict(opt=self._opt, negatives=self.negatives,
-                      backend=self.sgns_backend, n_pairs=n_pairs)
-            if self.shard_tables:
-                self.params, self.opt_state, losses = train_epoch_sharded(
-                    self.params, self.opt_state, c, x, valid, perm2d, prob,
-                    alias, skey, u_in=self._u_in, u_out=self._u_out,
-                    mesh=self.mesh, **kw)
-            else:
-                self.params, self.opt_state, losses = _train_epoch(
-                    self.params, self.opt_state, c, x, valid, perm2d, prob,
-                    alias, skey, **kw)
-            if self.record_loss:
-                self._losses.append(losses)
-        self._round += 1
-        # concat-equivalent H2D: the host path stages center/pos/neg (i32)
-        # + valid (f32) per step; deterministic, so the ratio is exact
-        per_step = 4 * self.batch_size * (3 + self.negatives)
-        coll = steps * self.epochs * sgns_exchange_bytes(
-            self._u_in + self._u_out, self.dim, self.shards) \
-            if self.shard_tables else 0
-        self.recorder.round_trained(
-            time.perf_counter() - t0, steps * self.epochs, 0, w * l,
-            walks.nbytes + alias_bytes, steps * self.epochs * per_step,
-            collective_bytes=coll)
+        with span("train.round", steps=steps * self.epochs, rounds=1):
+            with span("train.negatives_table"):
+                prob, alias, alias_bytes = self._alias_refresh(walks)
+            if n_pairs == 0:
+                self._round += 1
+                self.recorder.round_trained(
+                    time.perf_counter() - t0, 0, 0, w * l,
+                    walks.nbytes + alias_bytes, 0)
+                return
+            dev_walks = torch.from_numpy(walks).to(self.device)
+            c, x, valid, n_valid = _gen_pairs(dev_walks, self.window)
+            self._pair_counts.append(n_valid * self.epochs)
+            rkey = jr.fold_in(self._key, self._round)
+            for e in range(self.epochs):
+                pkey, skey = jr.split(jr.fold_in(rkey, e))
+                perm2d = _perm_batches(pkey, n_pairs, steps,
+                                       self.batch_size)
+                kw = dict(opt=self._opt, negatives=self.negatives,
+                          backend=self.sgns_backend, n_pairs=n_pairs)
+                if self.shard_tables:
+                    self.params, self.opt_state, losses = \
+                        train_epoch_sharded(
+                            self.params, self.opt_state, c, x, valid, perm2d,
+                            prob, alias, skey, u_in=self._u_in,
+                            u_out=self._u_out, mesh=self.mesh, **kw)
+                else:
+                    self.params, self.opt_state, losses = _train_epoch(
+                        self.params, self.opt_state, c, x, valid, perm2d,
+                        prob, alias, skey, **kw)
+                if self.record_loss:
+                    self._losses.append(losses)
+            self._round += 1
+            # concat-equivalent H2D: the host path stages center/pos/neg
+            # (i32) + valid (f32) per step; deterministic, so the ratio is
+            # exact
+            per_step = 4 * self.batch_size * (3 + self.negatives)
+            coll = steps * self.epochs * sgns_exchange_bytes(
+                self._u_in + self._u_out, self.dim, self.shards) \
+                if self.shard_tables else 0
+            self.recorder.round_trained(
+                time.perf_counter() - t0, steps * self.epochs, 0, w * l,
+                walks.nbytes + alias_bytes, steps * self.epochs * per_step,
+                collective_bytes=coll)
 
     # --------------------------------------------------------- training --
     def train(self, source: Iterable[np.ndarray],
