@@ -34,13 +34,19 @@ builds the kernels of ``src/repro_torch/kernels/csrc``, then:
    in bf16; two launches on one input ``torch.equal``): both routes, the
    bf16 tensor-core kernel (bf16, dh a multiple of 16) and the float32
    SIMT kernel (float32, and bf16 at dh=100);
+   1d. the threefry kernel ``torch.equal`` to ``threefry2x32_plain`` on
+   the same card inputs at the cells' sizes: a superstep's fold_in, split
+   and uniform (split's strided half) at W = 2^20, ``step_uniforms`` over
+   [2^20, 79] whole and stage by stage, and ``random_bits`` one past a
+   CHUNK; each timed device-only beside the plain version and its bound;
 2. main path A — the per-step ``node2vec_step`` kernel on the FN-Cache
    layout: ``WalkEngine.build("wec:k=17,deg=100,seed=0", WalkPlan(
    backend="fused", cap=128, ...))``, two FN-Multi rounds in exact and in
    approx mode, every vertex a walker; walks must equal the reference
    backend's, the kernel (its layout entry) must launch once per
    superstep, and in exact mode no superstep may build full-width rows
-   (``unified_row`` runs once a round, for step 0's first-order draw). At
+   (``unified_row`` runs once a round, for step 0's first-order draw), and
+   exact supersteps must launch the threefry kernel 3 times each. At
    superstep 40 both entries and the row assembly the layout entry removes
    are timed;
    path C — streamed SGNS on path A's layout: ``StreamingSGNSTrainer(
@@ -294,13 +300,15 @@ DEV = "cuda"
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+INT32_OPS_PER_S = 16.7e12       # H100 SXM: 132 SMs x 64 int32 lanes x 1.98 GHz
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 dense tensor cores
 CU_SOURCE = "src/repro_torch/kernels/csrc/node2vec_step.cu"
 SGNS_SOURCE = "src/repro_torch/kernels/csrc/sgns.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
 FLASH_SIMT_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+THREEFRY_SOURCE = "src/repro_torch/kernels/csrc/threefry.cu"
 KERNEL_LIBS = ("node2vec_step", "sgns", "flash_attention",
-               "flash_attention_sm90")
+               "flash_attention_sm90", "threefry")
 A_SPEC = "wec:k=17,deg=100,seed=0"
 B_SPEC = "er:k=18,deg=100,seed=0"
 WIDE = "B on A's graph"         # path B's kernel at rows 913 wide
@@ -408,6 +416,8 @@ H_WORLD = 2                     # H2-H4's ranks, both on the one card
 H_WAIT_S = 600                  # the longest the script waits for them
 H4_SPEC = "wec:k=12,deg=100,seed=0"
 H3_ROUNDS = 1                   # H3 trains path C's round 0 (of 2)
+TF_W = 1 << 20                  # the threefry check's walkers (the cells')
+TF_OPS = 80                     # uint32 operations a threefry evaluation
 
 
 CHILDREN: list = []             # worker processes, stopped at exit
@@ -776,6 +786,114 @@ def check_kernels(np, torch, K, pad):
         f"u0 = n + 5, and on the hub graph whose walkers reach PAD_ID and "
         f"stay there")
     return step_err, walk_err
+
+
+def threefry_plain(torch, jr):
+    """The main paths' draws written out on ``threefry2x32_plain`` alone
+    (eager ops on whatever device the inputs are on): fold_in, split,
+    uniform, step_uniforms and random_bits."""
+    P, MASK = jr.threefry2x32_plain, jr.MASK
+
+    def fold_in(k, data):
+        return torch.stack(P(k[..., 0], k[..., 1], 0, data & MASK), dim=-1)
+
+    def split(k):
+        k = k.unsqueeze(-2)
+        return torch.stack(P(k[..., 0], k[..., 1], 0,
+                             torch.arange(2, device=k.device)), dim=-1)
+
+    def uniform(k):
+        o0, o1 = P(k[..., 0], k[..., 1], 0, 0)
+        return jr._to_float(o0 ^ o1)
+
+    def step_uniforms(seed, ids, length):
+        steps = torch.arange(1, length, device=ids.device)
+        keys = fold_in(fold_in(seed, ids)[:, None], steps[None, :])
+        return uniform(split(keys)[..., 0, :])
+
+    def random_bits(k, n):
+        count = torch.arange(n, device=k.device)
+        o0, o1 = P(k[0], k[1], count >> 32, count & MASK)
+        return o0 ^ o1
+    return fold_in, split, uniform, step_uniforms, random_bits
+
+
+def check_threefry(np, torch, jr, TF) -> dict:
+    """The threefry kernel at the main paths' sizes, ``torch.equal`` to
+    :func:`threefry_plain` on the same inputs on the card: a superstep's
+    fold_in, split and uniform (split's strided half) at W = 2^20, the
+    whole walk's ``step_uniforms`` over [2^20, 79] whole and stage by
+    stage, and a shaped draw one past a CHUNK (two launches). Each call's
+    device-only time (a CUDA graph), the plain version's (CUDA events), and
+    the bound of the bytes the call needs (its operands read once, its
+    output written once) and of TF_OPS operations an evaluation at
+    INT32_OPS_PER_S."""
+    from repro_torch.core.walk import step_uniforms
+    fold_in, split, uniform, step_plain, bits_plain = threefry_plain(torch,
+                                                                     jr)
+    w, n = TF_W, TF_W * (LENGTH - 1)
+    seed = jr.PRNGKey(2 ** 31 + 7, device=DEV)
+    ids = torch.arange(w, device=DEV)
+    wkeys = jr.fold_in(seed, ids)
+    half = jr.split(wkeys)[:, 0]
+    steps = torch.arange(1, LENGTH, device=DEV)
+    grid = jr.fold_in(wkeys[:, None], steps[None, :])
+    grid_half = jr.split(grid)[..., 0, :]
+    nb = jr.CHUNK + 1
+    # name: (kernel, plain, bytes needed, evaluations, launches)
+    calls = {
+        "fold_in_seed": (lambda: jr.fold_in(seed, ids),
+                         lambda: fold_in(seed, ids), 24 * w, w, 1),
+        "fold_in": (lambda: jr.fold_in(wkeys, LENGTH // 2),
+                    lambda: fold_in(wkeys, LENGTH // 2), 32 * w, w, 1),
+        "split": (lambda: jr.split(wkeys), lambda: split(wkeys), 48 * w, w,
+                  1),
+        "uniform": (lambda: jr.uniform(half), lambda: uniform(half), 20 * w,
+                    w, 1),
+        "fold_in_grid": (lambda: jr.fold_in(wkeys[:, None], steps[None, :]),
+                         lambda: fold_in(wkeys[:, None], steps[None, :]),
+                         16 * w + 8 * (LENGTH - 1) + 16 * n, n, 1),
+        "split_grid": (lambda: jr.split(grid), lambda: split(grid), 48 * n,
+                       n, 1),
+        "uniform_grid": (lambda: jr.uniform(grid_half),
+                         lambda: uniform(grid_half), 20 * n, n, 1),
+        "step_uniforms": (lambda: step_uniforms(seed, ids, LENGTH),
+                          lambda: step_plain(seed, ids, LENGTH),
+                          8 * w + 4 * n, w + 3 * n, 4),
+        "random_bits": (lambda: jr.random_bits(seed, (nb,)),
+                        lambda: bits_plain(seed, nb), 8 * nb, nb, 2),
+    }
+    out = {}
+    for name, (kernel, plain, nbytes, evals, launches) in calls.items():
+        before = TF.threefry2x32.launches
+        got = kernel()
+        if TF.threefry2x32.launches - before != launches:
+            raise AssertionError(f"threefry {name}: "
+                                 f"{TF.threefry2x32.launches - before} "
+                                 f"launches, want {launches}")
+        want = plain()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"threefry {name}: the kernel differs from "
+                                 f"threefry2x32_plain")
+        del got, want
+        big = evals > 4 * w
+        ms = graph_ms(torch, kernel, 5 if big else 50)
+        plain_ms = cuda_ms(torch, plain, 1 if big else 5)
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ops = TF_OPS * evals / INT32_OPS_PER_S * 1e3
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+                     "bound_ms_bytes": b_bytes, "bound_ms_ops": b_ops,
+                     "launches": launches}
+        log(f"threefry {name} (== plain, {launches} launch(es)): "
+            f"{ms:.4f} ms device-only, bound {max(b_bytes, b_ops):.4f} ms "
+            f"(bytes {b_bytes:.4f}: {nbytes / 1e6:.1f} MB; operations "
+            f"{b_ops:.4f}), plain {plain_ms:.4f} ms")
+    torch.cuda.synchronize()
+    out["fold_in"]["ms_host"] = cuda_ms(
+        torch, lambda: jr.fold_in(wkeys, LENGTH // 2), 50)
+    log(f"threefry fold_in at W=2^20, back-to-back calls: "
+        f"{out['fold_in']['ms_host']:.4f} ms a call host-inclusive")
+    return out
 
 
 def sgns_rows(np, rng, b: int, k: int, d: int):
@@ -3722,6 +3840,7 @@ def main(argv) -> int:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import node2vec_step as K
     from repro_torch.kernels import sgns as S
+    from repro_torch.kernels import threefry as TF
     from repro_torch.core import walk as WALK
 
     smi = subprocess.run(
@@ -3753,6 +3872,7 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     flash_err = check_flash(np, torch, FA)
+    tf = check_threefry(np, torch, jr, TF)
     since(t_start, "phase 1")
 
     # ---- main path A: per-step kernel, FN-Cache ------------------------
@@ -3764,19 +3884,29 @@ def main(argv) -> int:
     log(f"A: {spec_a}: n={pg_a.n} m={first.store.graph.m} "
         f"max_deg={pg_a.hot_cap} hot={pg_a.num_hot} layout built in "
         f"{time.perf_counter() - t0:.2f} s host")
-    step_launches, rows_built, a_walks = {}, {}, {}
+    step_launches, rows_built, a_walks, tf_launches = {}, {}, {}, {}
     for mode in ("exact", "approx"):
         kw = dict(p=1.0, q=0.5, length=LENGTH, cap=128, mode=mode)
         fused = WalkEngine.build(pg_a, WalkPlan(backend="fused", **kw))
         ref = WalkEngine.build(pg_a, WalkPlan(backend="reference", **kw))
         K.node2vec_step.launches = 0
         K.node2vec_walk.launches = 0
+        TF.threefry2x32.launches = 0
         built = count_calls(WALK, "unified_row")
         try:
             walks, secs = drive(torch, fused, 2)
         finally:
             built = built()
         step_launches[mode] = K.node2vec_step.launches
+        # a round: the walkers' keys (1) and step 0's alias draw (4), then
+        # the supersteps' draws
+        tf_launches[mode] = (TF.threefry2x32.launches - 2 * 5) / (
+            2 * (LENGTH - 1))
+        if mode == "exact" and tf_launches[mode] != 3:
+            raise AssertionError(f"A/exact: {TF.threefry2x32.launches} "
+                                 f"threefry launches in 2 rounds, "
+                                 f"{tf_launches[mode]} a superstep, want 3 "
+                                 f"(fold_in, split, uniform)")
         rows_built[mode] = built
         # step 0's first-order draw builds the start rows once a run; exact
         # supersteps read the layout in place
@@ -3806,7 +3936,8 @@ def main(argv) -> int:
         log(f"A/{mode}: fused {steps / secs:.4g} walker-steps/s "
             f"({secs:.3f} s), reference {steps / ref_secs:.4g} "
             f"walker-steps/s; == reference; node2vec_step launches "
-            f"{step_launches[mode]}; unified_row calls {rows_built[mode]}")
+            f"{step_launches[mode]}; unified_row calls {rows_built[mode]}; "
+            f"threefry launches a superstep {tf_launches[mode]:.4g}")
         profile_round(torch, lambda: fused.run(seed=1), f"A/{mode} fused")
 
     # superstep s of path A's round 0 (seed 0), for timing the step kernel:
@@ -4022,6 +4153,18 @@ def main(argv) -> int:
          "ms_rows_entry_device_bw": bw["ms_rows_entry_device"],
          "plain_ms_bw": bw["plain_ms"], "bound_ms_bw": bw["bound"][0],
          "bound_by_bw": bw["bound"][1]},
+        {"name": "threefry2x32", "route": "cuda", "source": THREEFRY_SOURCE,
+         "replaces": "none (jax.random threefry)",
+         "launches_per_superstep": tf_launches["exact"],
+         "launches_per_superstep_approx": tf_launches["approx"],
+         "max_abs_err": 0, "ms": tf["fold_in"]["ms"],
+         "ms_host": tf["fold_in"]["ms_host"],
+         "plain_ms": tf["fold_in"]["plain_ms"],
+         "bound_ms": max(tf["fold_in"]["bound_ms_bytes"],
+                         tf["fold_in"]["bound_ms_ops"]),
+         "bound_by": "bytes" if tf["fold_in"]["bound_ms_bytes"]
+         >= tf["fold_in"]["bound_ms_ops"] else "operations",
+         "library_ms": None, "calls": tf},
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
          "replaces": "src/repro/kernels/flash_attention.py:93",
          "launches": flash_launches, "launches_tc": fl["launches_tc"],

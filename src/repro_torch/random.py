@@ -21,8 +21,15 @@ sampling) hash a 64-bit iota counter, split into (hi, lo) words, and keep
 ``o0 ^ o1`` of each: :func:`random_bits`.
 
 A key is an int64 tensor whose last axis holds the two uint32 words; every
-function is vectorised over the leading axes. uint32 arithmetic is emulated
-in int64 and masked with ``& 0xFFFFFFFF``.
+function is vectorised over the leading axes. Each public call is one
+evaluation (a shaped draw one a chunk, ``randint`` three): on a CUDA key one
+launch of the hand-written kernel (:mod:`repro_torch.kernels.threefry`),
+which reads the key and counter operands where they lie (broadcast, views),
+computes split's and the shaped draws' counters from the element's index,
+and writes the key, the bits or the uniform itself; on a CPU key
+:func:`threefry2x32_plain`, which emulates the uint32 arithmetic in int64
+eager ops masked with ``& 0xFFFFFFFF``, then the same epilogue in eager ops.
+Both give the same bits.
 
 Shaped draws evaluate the counter in chunks of at most :data:`CHUNK`
 elements of the flat index, each chunk taken from bits to its final value
@@ -41,6 +48,9 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.kernels import threefry as kernel
+from repro_torch.kernels.threefry import Count
+
 MASK = 0xFFFFFFFF
 CHUNK = 1 << 22         # counter elements a shaped draw evaluates at once
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -50,17 +60,13 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & MASK
 
 
-def threefry2x32(k0, k1, x0, x1):
-    """20-round threefry2x32 of counter words (x0, x1) under key (k0, k1).
-
-    All four arguments are int64 tensors of uint32 values that broadcast
-    against each other; returns the two output words.
-    """
-    if k0.is_meta:
-        shape = torch.broadcast_shapes(*(torch.as_tensor(t).shape
-                                         for t in (k0, k1, x0, x1)))
-        out = torch.empty(shape, dtype=torch.int64, device="meta")
-        return out, out
+def threefry2x32_plain(k0, k1, x0, x1):
+    """20-round threefry2x32 of counter words (x0, x1) under key (k0, k1),
+    as eager ops: each uint32 add, shift, or, xor and mask an int64 op
+    (about 170 an evaluation). The arguments are int64 tensors of uint32
+    values (or Python ints) that broadcast against each other; only their
+    low 32 bits matter. Returns the two output words. CPU keys take it;
+    CUDA keys take the kernel (:func:`_evaluate`)."""
     ks = (k0, k1, (k0 ^ k1 ^ 0x1BD11BDA) & MASK)
     x0 = (x0 + ks[0]) & MASK
     x1 = (x1 + ks[1]) & MASK
@@ -82,28 +88,61 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
                         device=device)
 
 
-def _counter(key: torch.Tensor, hi, lo) -> torch.Tensor:
-    o0, o1 = threefry2x32(key[..., 0], key[..., 1], hi, lo)
-    return torch.stack([o0, o1], dim=-1)
+def _evaluate(key: torch.Tensor, x0, x1, shape, out: str):
+    """One evaluation under ``key`` [..., 2] (broadcasting to ``shape``)
+    of counter words x0, x1 (tensors, ints or :class:`Count`\\ s), written
+    as ``out`` says (:data:`repro_torch.kernels.threefry.OUTS`): one kernel
+    launch on CUDA, the plain version on the CPU, an empty result on
+    ``meta``. The only place that routes an evaluation by device."""
+    shape = tuple(shape)
+    k0, k1 = key[..., 0], key[..., 1]
+    if key.is_cuda:
+        return kernel.threefry2x32(k0, k1, x0, x1, shape, out)
+    if key.is_meta:
+        return torch.empty(shape + ((2,) if out == "key" else ()),
+                           dtype=torch.float32 if out == "uniform"
+                           else torch.int64, device="meta")
+    o0, o1 = threefry2x32_plain(k0, k1, _plain_word(x0, shape, key.device),
+                                _plain_word(x1, shape, key.device))
+    if out == "key":
+        return torch.stack([o0, o1], dim=-1)
+    return _to_float(o0 ^ o1) if out == "uniform" else o0 ^ o1
+
+
+def _plain_word(x, shape: tuple, device):
+    """An operand of :func:`_evaluate` as the plain version takes it: an
+    int64 tensor (int32 data widened, or with a 0-dim int64 key the eager
+    ops would compute in int32), a Python int, or the count's words."""
+    if isinstance(x, torch.Tensor):
+        return x.long()
+    if not isinstance(x, Count):
+        return x
+    count = torch.arange(x.base, x.base + shape[x.dim], dtype=torch.int64,
+                         device=device).reshape(
+        (-1,) + (1,) * (len(shape) - 1 - x.dim))
+    return count >> 32 if x.hi else count & MASK
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``, batched: key [..., 2], data int [...] (or a
     Python int). ``data`` is taken mod 2**32 as JAX's uint32 cast does. A
-    Python int is filled in on the key's device (no host-to-device copy)."""
+    Python int is passed as a constant (no tensor, no host-to-device
+    copy); int32 and int64 data are read as they are."""
     if isinstance(data, int):
-        data = torch.full((), data & MASK, dtype=torch.int64,
-                          device=key.device)
-    else:
-        data = torch.as_tensor(data, dtype=torch.int64,
-                               device=key.device) & MASK
-    return _counter(key, torch.zeros_like(data), data)
+        return _evaluate(key, 0, data & MASK, key.shape[:-1], "key")
+    data = torch.as_tensor(data, device=key.device)
+    if data.dtype not in (torch.int32, torch.int64):
+        data = data.long()
+    # numpy's rule: torch.broadcast_shapes' first call imports torch._refs
+    return _evaluate(key, 0, data,
+                     np.broadcast_shapes(key.shape[:-1], data.shape), "key")
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``, batched: key [..., 2] -> [..., num, 2]."""
-    idx = torch.arange(num, dtype=torch.int64, device=key.device)
-    return _counter(key.unsqueeze(-2), torch.zeros_like(idx), idx)
+    shape = (*key.shape[:-1], num)
+    return _evaluate(key.unsqueeze(-2), 0, Count(0, len(shape) - 1), shape,
+                     "key")
 
 
 def _to_float(bits: torch.Tensor) -> torch.Tensor:
@@ -125,10 +164,10 @@ def uniform(key: torch.Tensor, shape=None, minval=0.0,
     float32 product is exact in float64 and the sum is rounded once)."""
     if shape is not None:
         return _draw(key, shape, torch.float32,
-                     lambda bits: _scale(_to_float(bits), minval, maxval))
-    zero = torch.zeros((), dtype=torch.int64, device=key.device)
-    out = _counter(key, zero, zero)
-    return _scale(_to_float(out[..., 0] ^ out[..., 1]), minval, maxval)
+                     lambda floats: _scale(floats, minval, maxval),
+                     out="uniform")
+    return _scale(_evaluate(key, 0, 0, key.shape[:-1], "uniform"), minval,
+                  maxval)
 
 
 def _scale(floats: torch.Tensor, minval: float,
@@ -180,8 +219,8 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     uniforms are bit-exact; :func:`erf_inv` agrees to 3 ulps. Each chunk
     goes from bits to its normal values before the next is drawn."""
     sqrt2 = np.float32(np.sqrt(2.0))
-    return _draw(key, shape, torch.float32, lambda bits: erf_inv(
-        _scale(_to_float(bits), _NORMAL_LO, 1.0)) * sqrt2)
+    return _draw(key, shape, torch.float32, lambda floats: erf_inv(
+        _scale(floats, _NORMAL_LO, 1.0)) * sqrt2, out="uniform")
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
@@ -196,32 +235,34 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits + (-torch.log(-torch.log(u))), dim=-1)
 
 
-def _bits(key: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+def _bits(key: torch.Tensor, lo: int, hi: int, out: str) -> torch.Tensor:
     """``o0 ^ o1`` of ``threefry(key, (i >> 32, i & MASK))`` for the flat
-    indices ``lo <= i < hi``."""
-    count = torch.arange(lo, hi, dtype=torch.int64, device=key.device)
-    o0, o1 = threefry2x32(key[0], key[1], count >> 32, count & MASK)
-    return o0 ^ o1
+    indices ``lo <= i < hi`` (``out="xor"``), or its uniform floats
+    (``"uniform"``)."""
+    return _evaluate(key, Count(lo, 0, hi=True), Count(lo, 0), (hi - lo,),
+                     out)
 
 
-def _draw(key, shape, dtype: torch.dtype, finish, keys=None) -> torch.Tensor:
+def _draw(key, shape, dtype: torch.dtype, finish, keys=None,
+          out: str = "xor") -> torch.Tensor:
     """A shaped draw of ``dtype`` under one [2] key, in chunks of
-    :data:`CHUNK` flat indices: ``finish`` maps each chunk's bits (one
-    tensor per key of ``keys``, default ``key`` alone) to its values, which
-    are written into the output. On ``meta``, the empty output."""
+    :data:`CHUNK` flat indices: ``finish`` maps each chunk's bits, or its
+    uniform floats for ``out="uniform"`` (one tensor per key of ``keys``,
+    default ``key`` alone), to its values, which are written into the
+    output. On ``meta``, the empty output."""
     shape = tuple(int(d) for d in shape)
     if key.is_meta:
         return torch.empty(shape, dtype=dtype, device="meta")
     keys = (key,) if keys is None else keys
     n = math.prod(shape)
     if n <= CHUNK:      # one chunk: no output buffer to copy into
-        return finish(*(_bits(k, 0, n) for k in keys)).to(dtype).reshape(
-            shape)
-    out = torch.empty(n, dtype=dtype, device=key.device)
+        return finish(*(_bits(k, 0, n, out) for k in keys)).to(
+            dtype).reshape(shape)
+    out_buf = torch.empty(n, dtype=dtype, device=key.device)
     for lo in range(0, n, CHUNK):
         hi = min(n, lo + CHUNK)
-        out[lo:hi] = finish(*(_bits(k, lo, hi) for k in keys))
-    return out.reshape(shape)
+        out_buf[lo:hi] = finish(*(_bits(k, lo, hi, out) for k in keys))
+    return out_buf.reshape(shape)
 
 
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
