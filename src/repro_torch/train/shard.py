@@ -28,6 +28,13 @@ step:
   the owned rows only; untouched rows keep their moments. O(rows·D) table
   work a step, against dense Adam's O(V·D).
 
+While a profiler runs, the negatives and each of the step's stages are
+spans (``repro_torch.tracing``): ``train.negatives``,
+``train.rows.dedup``, ``train.rows.gather`` (owner gather and inverse
+gathers), ``train.rows.scatter`` and ``train.rows.adam`` (the update and
+the write-backs; it counts the buffers' ``rows``). The row grads run
+in no span: the device trace times their kernel.
+
 The unique buffers never hold more rows than the padded table
 (:func:`unique_rows`): a set of distinct ids cannot outgrow it.
 
@@ -47,6 +54,7 @@ from repro_torch import random as jr
 from repro_torch.device import deterministic
 from repro_torch.kernels.sgns import sgns_row_grads
 from repro_torch.optim.optimizers import AdamState
+from repro_torch.tracing import span
 from repro_torch.train.pairs import device_negatives
 
 TABLES = ("emb_in", "emb_out")
@@ -173,25 +181,28 @@ def train_epoch_sharded(params, opt_state, c, x, valid, perm2d, prob, alias,
         idx = perm2d[s]
         in_bounds = (s * batch_size + lane) < n_pairs
         center, pos = c[idx], x[idx]
-        neg = device_negatives(jr.fold_in(key, s), prob, alias,
-                               (batch_size, negatives)).reshape(-1)
+        with span("train.negatives", dev):
+            neg = device_negatives(jr.fold_in(key, s), prob, alias,
+                                   (batch_size, negatives)).reshape(-1)
         v = (valid[idx] & in_bounds).to(torch.float32)
 
-        uc = unique_padded(center, u_in, vp)
-        uo = unique_padded(torch.cat([pos, neg]), u_out, vp)
-        inv_c = torch.searchsorted(uc, center)
-        inv_p = torch.searchsorted(uo, pos)
-        inv_n = torch.searchsorted(uo, neg)
-        owned = {"emb_in": _owned(uc, row0, n_loc),
-                 "emb_out": _owned(uo, row0, n_loc)}
-        rows = {k: psum(torch.where(keep, tab[k][li], 0.0), mesh)
-                for k, (li, keep) in owned.items()}
-        ci = rows["emb_in"][inv_c]
-        po = rows["emb_out"][inv_p]
-        no = rows["emb_out"][inv_n].reshape(batch_size, negatives, -1)
+        with span("train.rows.dedup", dev):
+            uc = unique_padded(center, u_in, vp)
+            uo = unique_padded(torch.cat([pos, neg]), u_out, vp)
+            inv_c = torch.searchsorted(uc, center)
+            inv_p = torch.searchsorted(uo, pos)
+            inv_n = torch.searchsorted(uo, neg)
+        with span("train.rows.gather", dev):
+            owned = {"emb_in": _owned(uc, row0, n_loc),
+                     "emb_out": _owned(uo, row0, n_loc)}
+            rows = {k: psum(torch.where(keep, tab[k][li], 0.0), mesh)
+                    for k, (li, keep) in owned.items()}
+            ci = rows["emb_in"][inv_c]
+            po = rows["emb_out"][inv_p]
+            no = rows["emb_out"][inv_n].reshape(batch_size, negatives, -1)
         loss_sum, g_ci, g_po, g_no = sgns_row_grads(ci, po, no, v, backend)
         denom = torch.clamp(v.sum(), min=1.0)
-        with deterministic(dev):
+        with span("train.rows.scatter", dev), deterministic(dev):
             grads = {
                 "emb_in": torch.zeros_like(rows["emb_in"]).index_add_(
                     0, inv_c, g_ci / denom),
@@ -200,14 +211,15 @@ def train_epoch_sharded(params, opt_state, c, x, valid, perm2d, prob, alias,
                 .index_add_(0, inv_n,
                             g_no.reshape(batch_size * negatives, -1) / denom)}
 
-        count = count + 1
-        for k, (li, keep) in owned.items():
-            mu_r = torch.where(keep, mu[k][li], 0.0)
-            nu_r = torch.where(keep, nu[k][li], 0.0)
-            upd, mu_n, nu_n = opt.update(grads[k], (mu_r, nu_r), count)
-            tab[k].index_copy_(0, li, rows[k] + upd)
-            mu[k].index_copy_(0, li, mu_n)
-            nu[k].index_copy_(0, li, nu_n)
+        with span("train.rows.adam", dev, rows=u_in + u_out):
+            count = count + 1
+            for k, (li, keep) in owned.items():
+                mu_r = torch.where(keep, mu[k][li], 0.0)
+                nu_r = torch.where(keep, nu[k][li], 0.0)
+                upd, mu_n, nu_n = opt.update(grads[k], (mu_r, nu_r), count)
+                tab[k].index_copy_(0, li, rows[k] + upd)
+                mu[k].index_copy_(0, li, mu_n)
+                nu[k].index_copy_(0, li, nu_n)
         losses.append(loss_sum / denom)
     return (_drop_scratch(tab, n_loc), AdamState(
         count, _drop_scratch(mu, n_loc), _drop_scratch(nu, n_loc)),

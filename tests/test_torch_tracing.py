@@ -271,3 +271,84 @@ def test_stream_ms_on_the_card():
                    if s.name not in timed)
         assert len(tracing._REC.free) >= 2 * len(
             [s for s in got if s.name in timed])
+
+
+ROW_SPANS = ("train.negatives", "train.rows.dedup", "train.rows.gather",
+             "train.rows.scatter", "train.rows.adam")
+
+
+def _row_trainer(n, device="cpu"):
+    return StreamingSGNSTrainer(n, dim=16, window=3, negatives=2,
+                                batch_size=128, seed=5,
+                                sgns_backend="fused", shard_tables=True,
+                                device=device)
+
+
+def test_row_adam_spans_come_once_a_step():
+    """With ``shard_tables`` the negatives, dedup, gather, scatter and
+    row-Adam spans come once a step inside ``train.round``; the row-Adam
+    span counts the unique buffers' rows, ``u_in + u_out``."""
+    eng = _engine(length=8)
+    walks = eng.run(seed=1).walks
+    tr = _row_trainer(eng.n)
+    t0 = time.time_ns()
+    _profiled(lambda: tr.consume(walks))
+    got = _since(t0)
+    (rnd,) = [s for s in got if s.name == "train.round"]
+    steps = rnd.counts["steps"]
+    assert steps > 1
+    for name in ROW_SPANS:
+        mine = [s for s in got if s.name == name]
+        assert len(mine) == steps and all(s.parent == rnd.id for s in mine)
+    adam = [s for s in got if s.name == "train.rows.adam"]
+    assert all(s.counts == {"rows": tr._u_in + tr._u_out} for s in adam)
+    assert not [s for s in got if s.name in ("train.adam", "train.scatter")]
+
+
+def test_row_adam_unprofiled_records_no_span():
+    eng = _engine(length=8)
+    walks = eng.run(seed=1).walks
+    tr = _row_trainer(eng.n)
+    t0 = time.time_ns()
+    tr.consume(walks)
+    assert not [s for s in _since(t0) if s.name.startswith("train.")]
+
+
+def test_row_adam_equal_with_tracing_on_and_off():
+    eng = _engine(length=8)
+    rounds = [r.walks for r in eng.rounds(2, seed=3)]
+    off, on = _row_trainer(eng.n), _row_trainer(eng.n)
+    for walks in rounds:
+        off.consume(walks)
+    _profiled(lambda: [on.consume(walks) for walks in rounds])
+    assert np.array_equal(off.loss_history(), on.loss_history())
+    for name, t in off.tables().items():
+        assert torch.equal(t, on.tables()[name])
+
+
+@pytest.mark.cuda
+def test_row_adam_stream_ms_on_the_card():
+    """On the card the row-Adam step's spans read stream ms, each no
+    longer than its host start to the synchronize."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    eng = _engine(device=dev, length=8)
+    walks = eng.run(seed=1).walks
+    tr = _row_trainer(eng.n, device=dev)
+    tr.consume(walks)
+    torch.cuda.synchronize(dev)
+
+    def work():
+        tr.consume(walks)
+        torch.cuda.synchronize(dev)
+        return time.time_ns()
+    t0 = time.time_ns()
+    t_sync, _ = _profiled(work, (ProfilerActivity.CPU, ProfilerActivity.CUDA))
+    got = _since(t0)
+    for name in ROW_SPANS:
+        mine = [s for s in got if s.name == name]
+        assert mine, name
+        for s in mine:
+            assert s.stream_ms is not None and s.stream_ms >= 0, name
+            assert s.stream_ms * 1e6 <= t_sync - s.start_ns, name
