@@ -61,6 +61,16 @@ def round_seed(seed: int, r: int) -> int:
     return seed * 1000003 + r
 
 
+def _ready(walks: torch.Tensor) -> Optional[torch.cuda.Event]:
+    """An event on the current stream after the walks' last kernel, which
+    the copy to the host waits for; None off the card."""
+    if walks.device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(walks.device))
+    return event
+
+
 def _overlap(g: ShardedGraph, plan: WalkPlan, capacity: int,
              walkers: int) -> dict:
     """Analytic total and exposed exchange bytes of a run of ``walkers``
@@ -152,6 +162,8 @@ class WalkEngine:
         self._no_hot = pg is not None and int(pg.hot_pos.max()) < 0
         self._delta_edges = 0           # cumulative churn via update()
         self._last_invalidated_fraction = 0.0
+        self._copy_stream = None        # made on the first copy from a card
+        self.pageable_copies = 0        # card copies without pinned memory
 
     @classmethod
     def build(cls, graph, plan: WalkPlan, mesh: Optional[RwMesh] = None,
@@ -245,7 +257,8 @@ class WalkEngine:
 
     def _dispatch(self, starts, seed: int, walker_ids):
         """Enqueue one run; returns (walks tensor on the device, the drops
-        or None, the row count to keep or None, the update snapshot)."""
+        or None, the row count to keep or None, the update snapshot, the
+        walks' :func:`_ready` event)."""
         with span("walk.dispatch", supersteps=self.plan.length):
             dev = self.device
             key = jr.PRNGKey(seed, device=dev)
@@ -261,7 +274,7 @@ class WalkEngine:
                 else run_reference
             walks = run(self.pg, starts, walker_ids.long(), key,
                         self._sampler, self.plan.length)
-            return walks, None, None, self._update_meta()
+            return walks, None, None, self._update_meta(), _ready(walks)
 
     def _dispatch_sharded(self, starts, key, walker_ids):
         """This rank walks its block of ``starts`` (which every rank is
@@ -301,12 +314,12 @@ class WalkEngine:
             dist.all_gather(parts, walks, group=mesh.group)
             walks = torch.cat(parts)
             dist.all_reduce(drops, group=mesh.group)
-        return walks, drops, slice_to, self._update_meta()
+        return walks, drops, slice_to, self._update_meta(), _ready(walks)
 
     def _finalize(self, dispatched) -> WalkResult:
-        walks, drops, slice_to, (gv, delta_edges, inv_frac) = dispatched
-        with span("walk.copy", walks.device):
-            walks = walks.cpu().numpy()
+        walks, drops, slice_to, (gv, delta_edges, inv_frac), ready = \
+            dispatched
+        walks = self._to_host(walks, ready)
         if slice_to is not None:
             walks = walks[:slice_to]
         dropped = int(drops) if drops is not None else 0
@@ -328,6 +341,40 @@ class WalkEngine:
                           graph_version=gv, delta_edges=delta_edges,
                           invalidated_shard_fraction=inv_frac)
         return WalkResult(walks=walks, stats=stats)
+
+    def _to_host(self, walks: torch.Tensor, ready) -> np.ndarray:
+        """``walks`` as a numpy array. From a card they are copied on the
+        engine's copy stream, once ``ready`` has passed, into page-locked
+        memory from PyTorch's caching host allocator: the copy runs beside
+        whatever the compute stream has been given since (the next round's
+        kernels), at the host link's rate. The array holds its pinned block
+        until the caller drops it. Where no pinned block can be had, the
+        walks take ``walks.cpu()`` (counted in ``pageable_copies``)."""
+        if ready is None:
+            with span("walk.copy", walks.device):
+                return walks.cpu().numpy()
+        try:
+            host = torch.empty(walks.shape, dtype=walks.dtype,
+                               pin_memory=True)
+        except RuntimeError as e:
+            self.pageable_copies += 1
+            warnings.warn(f"no page-locked memory for the walks ({e}); "
+                          f"copied to pageable memory", RuntimeWarning,
+                          stacklevel=4)
+            with span("walk.copy", walks.device, pinned=0):
+                return walks.cpu().numpy()
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(walks.device)
+        side = self._copy_stream
+        side.wait_event(ready)
+        with torch.cuda.stream(side):
+            with span("walk.copy", walks.device, pinned=1):
+                host.copy_(walks, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        walks.record_stream(side)
+        done.synchronize()
+        return host.numpy()
 
     def _overlap_estimate(self, walkers: int) -> dict:
         """Analytic total and exposed exchange bytes of a run of
@@ -351,7 +398,10 @@ class WalkEngine:
     def rounds(self, num_rounds: int, seed: int = 0,
                start: int = 0) -> Iterator[WalkResult]:
         """FN-Multi rounds: round ``k+1`` is enqueued on the device before
-        round ``k`` is copied to the host and yielded."""
+        round ``k`` is copied to the host and yielded, so on a card round
+        ``k``'s copy runs beside round ``k+1``'s kernels. A yielded array
+        walked on a card holds page-locked host memory for as long as it
+        is held; drop the rounds already consumed."""
         if num_rounds <= start:
             return
         pending = self._dispatch(None, round_seed(seed, start), None)

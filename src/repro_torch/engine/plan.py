@@ -104,6 +104,8 @@ class WalkStats:
 
 @dataclasses.dataclass(frozen=True)
 class WalkResult:
-    """Host-side walks [W, length] int32 plus their stats."""
+    """Host-side walks [W, length] int32 plus their stats. Walks run on a
+    card reach the host in page-locked memory, which ``walks`` holds for
+    as long as it lives."""
     walks: np.ndarray
     stats: WalkStats

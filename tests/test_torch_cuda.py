@@ -12,6 +12,7 @@ does, is skipped)::
 """
 import dataclasses
 import importlib.util
+import time
 from pathlib import Path
 
 import numpy as np
@@ -20,7 +21,8 @@ import torch
 
 from repro_torch.core.graph import PAD_ID
 from repro_torch.core.walk import unified_row
-from repro_torch.engine import WalkEngine, WalkPlan
+from repro_torch import tracing
+from repro_torch.engine import WalkEngine, WalkPlan, round_seed
 from repro_torch import random as jr
 from repro_torch.configs import smoke_config
 from repro_torch.core.node2vec import Node2VecConfig
@@ -203,6 +205,70 @@ def test_fused_walks_on_card_match_cpu(cuda, mode, cap, pipeline):
     before = K.node2vec_step.launches + K.node2vec_walk.launches
     assert np.array_equal(eng.run(seed=11).walks, cpu)
     assert K.node2vec_step.launches + K.node2vec_walk.launches > before
+
+
+def test_held_rounds_on_card_equal_fresh_runs_and_cpu(cuda):
+    """Four rounds of the fused engine, every array held to the last: each
+    equals a fresh run of its round's seed and the CPU reference backend's
+    walks, so no later round's copy lands in a held round's pinned block."""
+    kw = dict(p=0.5, q=2.0, length=8, mode="exact", cap=24)
+    spec = "skew:s=4,k=9,deg=20,seed=3"
+    eng = WalkEngine.build(spec, WalkPlan(backend="fused", **kw))
+    cpu = WalkEngine.build(spec, WalkPlan(backend="reference", **kw),
+                           device="cpu")
+    held = [r.walks for r in eng.rounds(4, seed=5)]
+    assert len({w.tobytes() for w in held}) == 4
+    for r, walks in enumerate(held):
+        seed = round_seed(5, r)
+        assert np.array_equal(walks, eng.run(seed=seed).walks), r
+        assert np.array_equal(walks, cpu.run(seed=seed).walks), r
+
+
+def _copy_ms(dev_walks):
+    """The least device ms of copying ``dev_walks`` into pinned memory on
+    an otherwise idle card, over three copies."""
+    host = torch.empty(dev_walks.shape, dtype=dev_walks.dtype,
+                       pin_memory=True)
+    best = float("inf")
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        host.copy_(dev_walks, non_blocking=True)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def test_card_walks_reach_the_host_pinned(cuda):
+    """Every array from a card is page-locked; the ``walk.copy`` span
+    counts ``pinned == 1`` and times the copy alone: a spin enqueued before
+    the walk's kernels, which the copy stream waits for, is not in it."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = WalkEngine.build("er:k=16,deg=10,seed=1",
+                           WalkPlan(backend="fused", length=80))
+    first = eng.run(seed=1).walks
+    held = [r.walks for r in eng.rounds(2, seed=3)]
+    assert all(torch.from_numpy(w).is_pinned() for w in [first] + held)
+    own = _copy_ms(torch.from_numpy(first).to(cuda))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    start.record()
+    torch.cuda._sleep(200_000_000)
+    end.record()
+    end.synchronize()
+    spin = start.elapsed_time(end)
+    assert spin > 20 * (own + 1.0)
+
+    t0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]):
+        torch.cuda._sleep(200_000_000)
+        walks = eng.run(seed=2).walks
+    (copy,) = [s for s in tracing.spans()
+               if s.name == "walk.copy" and s.start_ns >= t0]
+    assert torch.from_numpy(walks).is_pinned()
+    assert copy.counts == {"pinned": 1} and eng.pageable_copies == 0
+    assert copy.stream_ms is not None
+    assert copy.stream_ms <= 2 * own + 1.0, (copy.stream_ms, own, spin)
 
 
 CHURN_SPEC = "wec:k=8,deg=12,seed=1"

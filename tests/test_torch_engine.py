@@ -93,6 +93,20 @@ def test_rounds_match_jax():
     assert np.array_equal(got[1], eng.run(seed=round_seed(7, 1)).walks)
 
 
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+def test_held_rounds_stay_equal_to_fresh_runs(backend):
+    """Arrays yielded by ``rounds()`` and held across the later rounds keep
+    their walks: no later round writes into a held round's memory."""
+    kw = dict(p=1.0, q=0.5, length=6, cap=24, mode="approx",
+              approx_eps=5e-2)
+    eng = WalkEngine.build(SKEW, WalkPlan(backend=backend, **kw),
+                           device="cpu")
+    held = [r.walks for r in eng.rounds(4, seed=7)]
+    assert len({w.tobytes() for w in held}) == 4
+    for r, walks in enumerate(held):
+        assert np.array_equal(walks, eng.run(seed=round_seed(7, r)).walks)
+
+
 def test_walks_over_carried_layout_match_jax():
     """A layout and a key carried across from the JAX package give the
     JAX package's walks."""
